@@ -1,0 +1,206 @@
+"""Weight bridge: the JAX ``BEVDepth4D`` variables -> this port's
+``state_dict``.
+
+The port names its submodules as the reference mmdet3d state_dict, so
+the correspondence is the one ``tools/model_converters/
+convert_torch_ckpt.py:bevdepth4d_name_map`` describes (reference torch
+name -> flax path).  This module keeps its own copy of that map and
+walks it the other way, converting layouts: conv kernels HWIO -> OIHW,
+Dense ``[in, out]`` -> ``[out, in]``, BatchNorm ``scale/bias`` and
+``mean/var`` -> ``weight/bias`` and ``running_mean/running_var``.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+NameMap = Dict[str, Tuple[str, ...]]
+
+
+def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str,
+                                                               np.ndarray]:
+    """Nested ``{'params': ..., 'batch_stats': ...}`` -> ``{'params/a/b':
+    array}`` with numpy leaves."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_variables(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def bn_name_map(torch_prefix: str, flax_path: Tuple[str, ...],
+                stats_map: NameMap) -> NameMap:
+    stats_map[f"{torch_prefix}.running_mean"] = flax_path + ("mean",)
+    stats_map[f"{torch_prefix}.running_var"] = flax_path + ("var",)
+    return {f"{torch_prefix}.weight": flax_path + ("scale",),
+            f"{torch_prefix}.bias": flax_path + ("bias",)}
+
+
+def resnet_name_map(depth: int, torch_prefix: str,
+                    flax_prefix: Tuple[str, ...]) -> Tuple[NameMap,
+                                                          NameMap]:
+    """mmdet ResNet names -> the JAX ResNet paths."""
+    blocks = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+              101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}[depth]
+    bottleneck = depth >= 50
+    pm: NameMap = {}
+    sm: NameMap = {}
+    tp = torch_prefix
+    pm[f"{tp}conv1.weight"] = flax_prefix + ("stem_conv", "kernel")
+    pm.update(bn_name_map(f"{tp}bn1", flax_prefix + ("stem_bn",), sm))
+    n_convs = 3 if bottleneck else 2
+    for li, n in enumerate(blocks):
+        for j in range(n):
+            t_blk = f"{tp}layer{li + 1}.{j}"
+            f_blk = flax_prefix + (f"layer{li + 1}_block{j}",)
+            for ci in range(1, n_convs + 1):
+                pm[f"{t_blk}.conv{ci}.weight"] = f_blk + (f"conv{ci}",
+                                                          "kernel")
+                pm.update(bn_name_map(f"{t_blk}.bn{ci}",
+                                      f_blk + (f"bn{ci}",), sm))
+            if j == 0 and (li > 0 or bottleneck):
+                pm[f"{t_blk}.downsample.0.weight"] = f_blk + (
+                    "downsample_conv", "kernel")
+                pm.update(bn_name_map(f"{t_blk}.downsample.1",
+                                      f_blk + ("downsample_bn",), sm))
+    return pm, sm
+
+
+def _bev_resnet_map(pm: NameMap, sm: NameMap, torch_prefix: str,
+                    flax_prefix: Tuple[str, ...], num_layer):
+    """ResNetForBEVDet ``layers.{i}.{j}`` -> ``stage{i}_block{j}``."""
+    for i, n in enumerate(num_layer):
+        for j in range(n):
+            t_blk = f"{torch_prefix}layers.{i}.{j}"
+            f_blk = flax_prefix + (f"stage{i}_block{j}",)
+            for ci in (1, 2):
+                pm[f"{t_blk}.conv{ci}.weight"] = f_blk + (f"conv{ci}",
+                                                          "kernel")
+                pm.update(bn_name_map(f"{t_blk}.bn{ci}",
+                                      f_blk + (f"bn{ci}",), sm))
+            if j == 0:
+                pm[f"{t_blk}.downsample.weight"] = f_blk + (
+                    "downsample_conv", "kernel")
+                pm[f"{t_blk}.downsample.bias"] = f_blk + (
+                    "downsample_conv", "bias")
+
+
+def _center_head_map(pm: NameMap, sm: NameMap, num_tasks: int = 6,
+                     keys=("reg", "height", "dim", "rot", "vel",
+                           "heatmap"), head_convs: int = 2):
+    pm["pts_bbox_head.shared_conv.conv.weight"] = (
+        "bbox_head", "shared_conv", "conv", "kernel")
+    pm.update(bn_name_map("pts_bbox_head.shared_conv.bn",
+                          ("bbox_head", "shared_conv", "norm"), sm))
+    for t in range(num_tasks):
+        for key in keys:
+            tk = f"pts_bbox_head.task_heads.{t}.{key}"
+            for j in range(head_convs - 1):
+                pm[f"{tk}.{j}.conv.weight"] = (
+                    "bbox_head", f"task_{t}", f"{key}_conv{j}", "conv",
+                    "kernel")
+                pm.update(bn_name_map(
+                    f"{tk}.{j}.bn",
+                    ("bbox_head", f"task_{t}", f"{key}_conv{j}", "norm"),
+                    sm))
+            final = head_convs - 1
+            pm[f"{tk}.{final}.weight"] = ("bbox_head", f"task_{t}",
+                                          f"{key}_out", "kernel")
+            pm[f"{tk}.{final}.bias"] = ("bbox_head", f"task_{t}",
+                                        f"{key}_out", "bias")
+
+
+def bevdepth4d_name_map(depth: int = 50) -> Tuple[NameMap, NameMap]:
+    """Reference BEVDepth4D(Distill) student state_dict name -> flax path
+    (params map, batch_stats map), as ``convert_torch_ckpt.py``."""
+    pm, sm = resnet_name_map(depth, "img_backbone.", ("backbone",))
+    for i in range(2):
+        pm[f"img_neck.lateral_convs.{i}.conv.weight"] = (
+            "neck", f"lateral_{i}", "kernel")
+        pm[f"img_neck.lateral_convs.{i}.conv.bias"] = (
+            "neck", f"lateral_{i}", "bias")
+    pm["img_neck.fpn_convs.0.conv.weight"] = ("neck", "fpn_conv_0",
+                                              "kernel")
+    pm["img_neck.fpn_convs.0.conv.bias"] = ("neck", "fpn_conv_0", "bias")
+    vt = "img_view_transformer."
+    fvt = ("view_transformer",)
+    for name in ("featnet", "depthnet"):
+        pm[f"{vt}{name}.weight"] = fvt + (name, "kernel")
+        pm[f"{vt}{name}.bias"] = fvt + (name, "bias")
+    pm[f"{vt}se.input_conv.weight"] = fvt + ("se", "input_conv", "kernel")
+    pm[f"{vt}se.input_conv.bias"] = fvt + ("se", "input_conv", "bias")
+    pm[f"{vt}se.fc.1.weight"] = fvt + ("se", "fc", "kernel")
+    pm[f"{vt}se.fc.1.bias"] = fvt + ("se", "fc", "bias")
+    pm.update(bn_name_map(f"{vt}se.fc.0", fvt + ("se", "fc_bn"), sm))
+    _bev_resnet_map(pm, sm, f"{vt}extra_depthnet.",
+                    fvt + ("extra_depthnet",), [3])
+    pm[f"{vt}dcn.0.weight"] = fvt + ("dcn_conv", "weight")
+    pm[f"{vt}dcn.0.bias"] = fvt + ("dcn_conv", "bias")
+    pm[f"{vt}dcn.0.conv_offset.weight"] = fvt + (
+        "dcn_conv", "conv_offset", "kernel")
+    pm[f"{vt}dcn.0.conv_offset.bias"] = fvt + (
+        "dcn_conv", "conv_offset", "bias")
+    pm.update(bn_name_map(f"{vt}dcn.1", fvt + ("dcn_bn",), sm))
+    _bev_resnet_map(pm, sm, "img_bev_encoder_backbone.",
+                    ("bev_backbone",), [2, 2, 2])
+    neck = "img_bev_encoder_neck."
+    pm[f"{neck}conv.0.weight"] = ("bev_neck", "conv0", "conv", "kernel")
+    pm.update(bn_name_map(f"{neck}conv.1", ("bev_neck", "conv0", "norm"),
+                          sm))
+    pm[f"{neck}conv.3.weight"] = ("bev_neck", "conv1", "conv", "kernel")
+    pm.update(bn_name_map(f"{neck}conv.4", ("bev_neck", "conv1", "norm"),
+                          sm))
+    pm[f"{neck}up2.1.weight"] = ("bev_neck", "up2_conv0", "conv",
+                                 "kernel")
+    pm.update(bn_name_map(f"{neck}up2.2",
+                          ("bev_neck", "up2_conv0", "norm"), sm))
+    pm[f"{neck}up2.4.weight"] = ("bev_neck", "up2_conv1", "kernel")
+    pm[f"{neck}up2.4.bias"] = ("bev_neck", "up2_conv1", "bias")
+    _bev_resnet_map(pm, sm, "pre_process_net.", ("pre_process_net",), [2])
+    _center_head_map(pm, sm)
+    return pm, sm
+
+
+def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 4:           # conv HWIO -> OIHW
+        return arr.transpose(3, 2, 0, 1)
+    if arr.ndim == 2:           # Dense [in, out] -> Linear [out, in]
+        return arr.transpose(1, 0)
+    return arr
+
+
+def jax_params_to_torch(flat: Mapping[str, np.ndarray],
+                        depth: int = 50) -> "OrderedDict[str, torch.Tensor]":
+    """Flattened JAX ``BEVDepth4D`` variables -> the port's state_dict.
+
+    Args:
+        flat: ``{'params/backbone/stem_conv/kernel': array,
+            'batch_stats/backbone/stem_bn/mean': array, ...}``
+            (``flatten_variables`` of ``{'params', 'batch_stats'}``).
+        depth: the image ResNet's depth.
+
+    Raises KeyError naming the first flax path the map needs and
+    ``flat`` lacks.
+    """
+    return map_to_state_dict(flat, *bevdepth4d_name_map(depth))
+
+
+def map_to_state_dict(flat: Mapping[str, np.ndarray], pm: NameMap,
+                      sm: NameMap) -> "OrderedDict[str, torch.Tensor]":
+    """Fill a state_dict through a (params, batch_stats) name map."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for collection, name_map in (("params", pm), ("batch_stats", sm)):
+        for tname, path in name_map.items():
+            key = "/".join((collection,) + path)
+            if key not in flat:
+                raise KeyError(f"{key} (for {tname}) not in the JAX "
+                               f"variables")
+            arr = _to_torch_layout(np.asarray(flat[key], np.float32))
+            sd[tname] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd

@@ -1,0 +1,114 @@
+"""Package rules of the PyTorch port.
+
+* ``distillbev_tpu_torch`` and every module of it import with JAX absent,
+  and pull in no module of the JAX package; no port file (nor
+  ``chip_smoke.py``) names ``jax``, ``flax`` or ``distillbev_tpu`` in an
+  import.
+* Its entry points default to the card (``device="cuda"``).
+* The JAX ``BEVDepth4D``'s variables load strictly into the port.
+"""
+import inspect
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "distillbev_tpu_torch")
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import distillbev_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = [m for m in sys.modules
+       if m == "distillbev_tpu" or m.startswith("distillbev_tpu.")]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|distillbev_tpu)\b",
+                     re.M)
+    offenders = [f for f in _port_files() if pat.search(open(f).read())]
+    assert not offenders, offenders
+
+
+def test_entry_points_default_to_the_card():
+    from distillbev_tpu_torch.apis import flagship
+    from distillbev_tpu_torch.apis.test import run_eval
+    for fn in (flagship.build_flagship_student,
+               flagship.make_example_batch, run_eval):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_does_not_fall_back_to_the_cpu():
+    import torch
+    from distillbev_tpu_torch.apis import flagship
+    from distillbev_tpu_torch.apis.test import run_eval
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises((RuntimeError, AssertionError)):
+        flagship.make_example_batch(1, img_hw=(32, 64))
+    model, batch = flagship.build_flagship_student(tiny=True, device="cpu")
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_eval(model, [{"img_inputs": batch,
+                          "img_metas": [{"sample_idx": "t"}]}])
+
+
+def test_jax_variables_load_strictly():
+    import test_golden_detector as golden
+    from distillbev_tpu.models import build_detector as jax_build_detector
+    from distillbev_tpu.models.detectors.bevdet import ImgInputs
+    from distillbev_tpu_torch.models import build_detector
+    from distillbev_tpu_torch.utils.convert import jax_params_to_torch
+    cfg = golden._jax_cfg()
+    n = golden.N_CAMS
+    h, w = golden.DATA["input_size"]
+    z = np.zeros
+    inputs = ImgInputs(z((1, 2 * n, h, w, 3), np.float32),
+                       np.tile(np.eye(3, dtype=np.float32), (1, 2, n, 1, 1)),
+                       z((1, 2, n, 3), np.float32),
+                       np.tile(np.eye(3, dtype=np.float32), (1, 2, n, 1, 1)),
+                       np.tile(np.eye(3, dtype=np.float32), (1, 2, n, 1, 1)),
+                       z((1, 2, n, 3), np.float32))
+    shapes = jax.eval_shape(jax_build_detector(cfg).init,
+                            jax.random.PRNGKey(0), inputs)
+    rng = np.random.RandomState(0)
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    flat = {"/".join(k.key for k in path):
+            rng.randn(*leaf.shape).astype(np.float32)
+            for path, leaf in leaves}
+    sd = jax_params_to_torch(flat)
+    model = build_detector(cfg)
+    model.load_state_dict(sd, strict=True)
+    key = "img_backbone.layer1.0.conv2.weight"
+    np.testing.assert_array_equal(
+        model.state_dict()[key].numpy(),
+        flat["params/backbone/layer1_block0/conv2/kernel"].transpose(
+            3, 2, 0, 1))
