@@ -1,4 +1,4 @@
-"""Flagship configs and the serving student at the reference's sizes.
+"""Flagship configs and models at the reference's sizes.
 
 Counterpart of ``distillbev_tpu/apis/flagship.py``: the same config
 factories (CenterPoint-pillar teacher, BEVDepth4D-R50 distill student),
@@ -6,7 +6,16 @@ the camera part of ``make_example_batch`` as torch tensors, and
 ``build_flagship_student``, the student-only counterpart of
 ``build_flagship``: a ``BEVDepth4D`` built from the distill cfg's model
 block with a seeded random init.  The teacher, points and GT of the
-train batch come with the training slice.
+distill batch come with the distill train step.
+
+The BEVFormer track: ``bevformer_r50_cfg`` (the student of
+``configs/lidar2camera_bev_distillation/teacher_to_bevformer/
+lidarformer_to_bevformer_nus_1x1conv_r50.py`` without the teacher),
+``bevformer_train_cfg`` (its optimizer, clipping and schedule),
+``bevformer_tiny_cfg`` (the same architecture cut to CPU size),
+``make_bevformer_example_batch`` (seeded queue inputs on a nuScenes-like
+six-camera rig, as ``tools/analysis_tools/bench_bevformer.py``) and
+``build_bevformer``.
 """
 from __future__ import annotations
 
@@ -278,3 +287,207 @@ def build_flagship_student(batch_size: int = 1, tiny: bool = False,
     batch = make_example_batch(batch_size, img_hw=hw, seed=seed,
                                device=device)
     return student, batch
+
+
+BEVFORMER_CLASSES = 10
+
+
+def bevformer_r50_cfg() -> dict:
+    """The BEVFormer-R50 student (reference distill cfg model block minus
+    the teacher and the distill keys): R50 -> FPN (256 ch, 4 levels), 6
+    encoder layers (TSA + SCA, 8 heads), 6 decoder layers, 900 queries,
+    BEV 200x200."""
+    pcr = POINT_CLOUD_RANGE
+    dim, ffn, bev = 256, 512, 200
+    return dict(
+        type="BEVFormer",
+        use_grid_mask=True, video_test_mode=True, seq_img_encoder=True,
+        history_sca_budget=14000,
+        img_backbone=dict(type="ResNet", depth=50, num_stages=4,
+                          out_indices=(1, 2, 3), frozen_stages=1,
+                          norm_cfg=dict(type="BN", requires_grad=False),
+                          norm_eval=True, with_cp=True),
+        img_neck=dict(type="FPN", in_channels=[512, 1024, 2048],
+                      out_channels=dim, start_level=0,
+                      add_extra_convs="on_output", num_outs=4,
+                      relu_before_extra_convs=True),
+        pts_bbox_head=dict(
+            type="BEVFormerHead", bev_h=bev, bev_w=bev, num_query=900,
+            num_classes=BEVFORMER_CLASSES, embed_dims=dim, pc_range=pcr,
+            real_h=102.4, real_w=102.4, with_box_refine=True,
+            code_weights=[1.0] * 8 + [0.2, 0.2],
+            transformer=dict(
+                type="PerceptionTransformer", embed_dims=dim, num_cams=6,
+                num_feature_levels=4, rotate_prev_bev=True, use_shift=True,
+                use_can_bus=True,
+                encoder=dict(num_layers=6, pc_range=pcr,
+                             num_points_in_pillar=4, embed_dims=dim,
+                             num_heads=8, feedforward_channels=ffn,
+                             num_levels=4, num_cams=6, with_cp=True,
+                             scan_layers=True, max_queries_per_cam=14000),
+                decoder=dict(num_layers=6, embed_dims=dim, num_heads=8,
+                             feedforward_channels=ffn,
+                             return_intermediate=True)),
+            positional_encoding=dict(num_feats=dim // 2, row_num_embed=bev,
+                                     col_num_embed=bev),
+            bbox_coder=dict(
+                type="NMSFreeCoder",
+                post_center_range=[-61.2, -61.2, -10.0, 61.2, 61.2, 10.0],
+                pc_range=pcr, max_num=300, num_classes=BEVFORMER_CLASSES),
+            loss_cls=dict(type="FocalLoss", use_sigmoid=True, gamma=2.0,
+                          alpha=0.25, reduction="mean", loss_weight=2.0),
+            loss_bbox=dict(type="L1Loss", reduction="mean",
+                           loss_weight=0.25)),
+        train_cfg=dict(pts=dict(
+            grid_size=[bev, bev, 1], voxel_size=[102.4 / bev, 102.4 / bev, 8],
+            point_cloud_range=pcr, out_size_factor=1,
+            assigner=dict(
+                type="HungarianAssigner3D",
+                cls_cost=dict(type="FocalLossCost", weight=2.0),
+                reg_cost=dict(type="BBox3DL1Cost", weight=0.25),
+                iou_cost=dict(type="IoUCost", weight=0.0),
+                pc_range=pcr))),
+        test_cfg=dict(pts=dict()))
+
+
+def bevformer_train_cfg(steps_per_epoch: int = 28130):
+    """``(optimizer, optimizer_config, lr_config, total_steps)`` of the
+    config: AdamW 2e-4, weight decay 0.01, backbone lr_mult 0.1, clip at
+    35, CosineAnnealing with 500 linear warmup steps over 24 epochs
+    (``steps_per_epoch`` defaults to the nuScenes train split at batch
+    1)."""
+    optimizer = dict(type="AdamW", lr=2e-4, weight_decay=0.01,
+                     paramwise_cfg=dict(custom_keys={
+                         "backbone": dict(lr_mult=0.1)}))
+    optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))
+    lr_config = dict(policy="CosineAnnealing", warmup="linear",
+                     warmup_iters=500, warmup_ratio=1.0 / 3,
+                     min_lr_ratio=1e-3)
+    return optimizer, optimizer_config, lr_config, 24 * steps_per_epoch
+
+
+TINY_BEVFORMER_PCR = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+TINY_BEVFORMER_IMG = (128, 224)
+
+
+def bevformer_tiny_cfg() -> dict:
+    """BEVFormer-R50's architecture at CPU size: ResNet-18 (base 8),
+    embed 32, 4 heads, 2 encoder + 2 decoder layers, BEV 24x24 (so TSA and
+    the decoder take the gather route), 20 queries, 4 classes, 16 m
+    range; GridMask and dropout off."""
+    cfg = bevformer_r50_cfg()
+    pcr, dim, bev = TINY_BEVFORMER_PCR, 32, 24
+    cfg.update(use_grid_mask=False, history_sca_budget=None)
+    cfg["img_backbone"].update(depth=18, base_channels=8)
+    cfg["img_neck"].update(in_channels=[16, 32, 64], out_channels=dim)
+    head = cfg["pts_bbox_head"]
+    head.update(bev_h=bev, bev_w=bev, num_query=20, num_classes=4,
+                embed_dims=dim, pc_range=pcr, real_h=16.0, real_w=16.0)
+    head["positional_encoding"] = dict(num_feats=dim // 2, row_num_embed=bev,
+                                       col_num_embed=bev)
+    head["bbox_coder"].update(post_center_range=[-10, -10, -10, 10, 10, 10],
+                              pc_range=pcr, max_num=10, num_classes=4)
+    t = head["transformer"]
+    t["embed_dims"] = dim
+    t["encoder"].update(num_layers=2, pc_range=pcr, embed_dims=dim,
+                        num_heads=4, feedforward_channels=64, dropout=0.0,
+                        max_queries_per_cam=None)
+    t["decoder"].update(num_layers=2, embed_dims=dim, num_heads=4,
+                        feedforward_channels=64, dropout=0.0)
+    tc = cfg["train_cfg"]["pts"]
+    tc.update(grid_size=[bev, bev, 1], voxel_size=[16.0 / bev, 16.0 / bev, 8],
+              point_cloud_range=pcr)
+    tc["assigner"]["pc_range"] = pcr
+    return cfg
+
+
+def nuscenes_like_lidar2img(img_h: int = 900, img_w: int = 1600
+                            ) -> np.ndarray:
+    """``[6, 4, 4]`` lidar-to-image matrices of six cameras with
+    nuScenes-like geometry: five ~65 degree cameras (fx = 1266 at 1600 px)
+    at yaws 0, +-55, +-110 degrees and one ~90 degree back camera (fx =
+    809), 1.5 m from the ego centre at 1.6 m height; the focal lengths
+    scale with ``img_w``."""
+    yaws = np.deg2rad([0.0, 55.0, -55.0, 110.0, -110.0, 180.0])
+    fxs = np.array([1266.4] * 5 + [809.2]) * img_w / 1600.0
+    l2is = []
+    for yaw, fx in zip(yaws, fxs):
+        zc = np.array([np.cos(yaw), np.sin(yaw), 0.0])   # view direction
+        yc = np.array([0.0, 0.0, -1.0])                  # image down
+        xc = np.cross(yc, zc)                            # image right
+        r_c2l = np.stack([xc, yc, zc], axis=1)
+        t = 1.5 * zc + np.array([0.0, 0.0, 1.6])
+        l2c = np.eye(4)
+        l2c[:3, :3] = r_c2l.T
+        l2c[:3, 3] = -r_c2l.T @ t
+        k = np.eye(4)
+        k[0, 0], k[1, 1] = fx, fx
+        k[0, 2], k[1, 2] = img_w / 2.0, img_h / 2.0
+        l2is.append(k @ l2c)
+    return np.stack(l2is).astype(np.float32)
+
+
+def make_bevformer_example_batch(batch_size: int = 1, queue: int = 4,
+                                 img_hw: Tuple[int, int] = (928, 1600),
+                                 n_obj: int = 64, n_real: int = 32,
+                                 pc_range=None,
+                                 num_classes: int = BEVFORMER_CLASSES,
+                                 seed: int = 0, device: str = "cuda"):
+    """A seeded BEVFormer queue batch, as
+    ``tools/analysis_tools/bench_bevformer.py``: images uniform in [-2, 2)
+    (drawn on ``device`` by a seeded generator), can-bus uniform in
+    [-1, 1), the nuScenes-like rig on every frame, frame 0 without
+    history, and ``n_real`` of ``n_obj`` GT boxes at 78% of the range with
+    random sizes, heights, yaws and labels."""
+    from ..training.train_step import BEVFormerBatch
+
+    pcr = pc_range or POINT_CLOUD_RANGE
+    rng = np.random.RandomState(seed)
+    h, w = img_hw
+    b, n_cams = batch_size, 6
+    gen = torch.Generator(device=device).manual_seed(seed)
+    imgs = torch.rand((b, queue, n_cams, h, w, 3), generator=gen,
+                      device=device) * 4.0 - 2.0
+    can_bus = rng.uniform(-1, 1, (b, queue, 18))
+    l2i = np.tile(nuscenes_like_lidar2img(h, w)[None, None],
+                  (b, queue, 1, 1, 1))
+    prev_exists = np.array([[0.0] + [1.0] * (queue - 1)] * b)
+    gt = np.zeros((b, n_obj, 9))
+    gt[..., :2] = rng.uniform(-0.78, 0.78, (b, n_obj, 2)) * pcr[3]
+    gt[..., 2] = rng.uniform(-2, 0, (b, n_obj))
+    gt[..., 3:6] = rng.uniform(1, 4, (b, n_obj, 3)) * pcr[3] / 51.2
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (b, n_obj))
+    labels = rng.randint(0, num_classes, (b, n_obj))
+    mask = np.arange(n_obj)[None].repeat(b, 0) < n_real
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return BEVFormerBatch(imgs, t(can_bus), t(l2i), t(prev_exists), None,
+                          None, t(gt), t(labels, torch.int64),
+                          t(mask, torch.bool))
+
+
+def build_bevformer(batch_size: int = 1, tiny: bool = False, seed: int = 0,
+                    device: str = "cuda"):
+    """Build ``(model, batch)``: the ``BEVFormer`` of
+    ``bevformer_r50_cfg`` (or ``bevformer_tiny_cfg``) on ``device``,
+    randomly initialised from ``seed`` with the JAX package's init rules,
+    and an example queue batch (tiny: queue 2, 128x224 images)."""
+    from ..models import build_detector
+    from ..models.layers import init_weights
+
+    cfg = bevformer_tiny_cfg() if tiny else bevformer_r50_cfg()
+    model = build_detector(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model = model.to(device)
+    if tiny:
+        batch = make_bevformer_example_batch(
+            batch_size, queue=2, img_hw=TINY_BEVFORMER_IMG, n_obj=8,
+            n_real=6, pc_range=TINY_BEVFORMER_PCR, num_classes=4, seed=seed,
+            device=device)
+    else:
+        batch = make_bevformer_example_batch(batch_size, seed=seed,
+                                             device=device)
+    return model, batch

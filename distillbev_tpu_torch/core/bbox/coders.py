@@ -1,9 +1,12 @@
-"""CenterPoint box coder: heatmap peaks -> boxes, fixed K, masked.
+"""Box coders: fixed K, masked.
 
 Counterpart of ``distillbev_tpu/core/bbox/coders.py``
-(``DecodedBoxes``, ``CenterPointBBoxCoder``): top-K over the
-``H*W*n_cls`` scores with class ``idx % n_cls``, regressions gathered at
-the peak pixels, validity by score threshold and post-center range.
+(``DecodedBoxes``, ``CenterPointBBoxCoder``, ``NMSFreeCoder``).
+CenterPoint: top-K over the ``H*W*n_cls`` scores with class
+``idx % n_cls``, regressions gathered at the peak pixels.  NMS-free
+(DETR heads): top-K over the ``Q*n_cls`` sigmoid scores, boxes decoded
+from the 10-dim regression with the bottom-centre z.  Validity by score
+threshold and post-center range in both.
 """
 from __future__ import annotations
 
@@ -89,3 +92,48 @@ class CenterPointBBoxCoder:
             valid &= (boxes[..., :3] >= pcr[:3]).all(-1)
             valid &= (boxes[..., :3] <= pcr[3:]).all(-1)
         return DecodedBoxes(boxes, scores, cls, valid)
+
+
+@CODERS.register_module()
+class NMSFreeCoder:
+    """Decode DETR-style ``(cls_scores, bbox_preds)`` without NMS;
+    bbox_preds ``(cx, cy, log w, log l, cz, log h, sin, cos, vx, vy)``
+    with cx/cy/cz already denormalised."""
+
+    def __init__(self, pc_range: Sequence[float],
+                 post_center_range: Optional[Sequence[float]] = None,
+                 max_num: int = 100, score_threshold: Optional[float] = None,
+                 num_classes: int = 10):
+        self.pc_range = pc_range
+        self.post_center_range = post_center_range
+        self.max_num = max_num
+        self.score_threshold = score_threshold
+        self.num_classes = num_classes
+
+    def decode_single(self, cls_scores: torch.Tensor,
+                      bbox_preds: torch.Tensor) -> DecodedBoxes:
+        """cls_scores ``[Q, n_cls]`` logits; bbox_preds ``[Q, 10]`` ->
+        DecodedBoxes with a leading batch axis of 1."""
+        n_cls = cls_scores.shape[1]
+        scores_all = torch.sigmoid(cls_scores).reshape(-1)
+        k = min(self.max_num, scores_all.shape[0])
+        # ties: lower index first, as jax.lax.top_k
+        order = torch.sort(scores_all, descending=True, stable=True).indices
+        idx = order[:k]
+        scores = scores_all[idx]
+        labels = (idx % n_cls).to(torch.int32)
+        bp = bbox_preds[idx // n_cls]
+        h = torch.exp(bp[:, 5])
+        boxes = torch.stack(
+            [bp[:, 0], bp[:, 1], bp[:, 4] - h / 2, torch.exp(bp[:, 2]),
+             torch.exp(bp[:, 3]), h, torch.atan2(bp[:, 6], bp[:, 7]),
+             bp[:, 8], bp[:, 9]], dim=-1)
+        valid = torch.ones_like(scores, dtype=torch.bool)
+        if self.score_threshold is not None:
+            valid &= scores > self.score_threshold
+        if self.post_center_range is not None:
+            pcr = boxes.new_tensor(self.post_center_range)
+            valid &= (boxes[:, :3] >= pcr[:3]).all(-1)
+            valid &= (boxes[:, :3] <= pcr[3:]).all(-1)
+        return DecodedBoxes(boxes[None], scores[None], labels[None],
+                            valid[None])

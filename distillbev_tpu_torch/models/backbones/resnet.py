@@ -4,9 +4,15 @@ Counterpart of ``distillbev_tpu/models/backbones/resnet.py``.
 ``ResNet`` is the mmdet image backbone with the plain 7x7/s2 stem (the
 JAX package's space-to-depth stem computes the same sums and is off by
 default).  ``ResNetForBEVDet`` is the BEV-space ResNet whose first
-block of each stage has a bare 3x3 conv shortcut.  The training-only
-knobs of the configs (``frozen_stages``, ``norm_eval``, ``with_cp``,
-``pretrained``) are accepted and have no effect on serving.
+block of each stage has a bare 3x3 conv shortcut.
+
+Training knobs of ``ResNet``: ``frozen_stages=k`` takes the stem and
+``layer1..layer k`` out of the gradient (``requires_grad=False``, as
+mmdet), and a ``norm_cfg`` with ``requires_grad=False`` freezes every
+BatchNorm affine.  BatchNorm always normalises with its running
+statistics, which is ``norm_eval=True``: the only setting this port
+trains with so far.  ``with_cp`` and ``pretrained`` are accepted and
+change no number.
 """
 from __future__ import annotations
 
@@ -64,6 +70,11 @@ class ResNet(nn.Module):
                     in_ch = channels
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             channels *= 2
+        if frozen_stages >= 0:
+            self.conv1.requires_grad_(False)
+            self.bn1.requires_grad_(False)
+            for i in range(1, frozen_stages + 1):
+                getattr(self, f"layer{i}").requires_grad_(False)
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x)))

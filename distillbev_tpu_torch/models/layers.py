@@ -4,8 +4,9 @@ Counterpart of ``distillbev_tpu/models/layers.py``.  Submodule names
 follow the reference mmcv/mmdet state_dict (``conv``/``bn``,
 ``conv1``/``bn1``, ``downsample.0``/``downsample.1``), so a reference
 checkpoint and ``utils/convert.py`` address the same tensors.  BatchNorm
-is the eval-mode form with running statistics: this slice serves, and
-the training slice brings batch statistics.
+is the eval-mode form with running statistics (the BEVFormer recipe
+trains with ``norm_eval=True``); batch statistics come with the distill
+train step.  ``dropout`` draws its mask from an explicit generator.
 """
 from __future__ import annotations
 
@@ -40,11 +41,25 @@ class BatchNorm(nn.Module):
 
 
 def make_norm(norm_cfg: Optional[dict], num_features: int) -> BatchNorm:
-    """BatchNorm from an mmcv-style norm_cfg (the BN family only)."""
+    """BatchNorm from an mmcv-style norm_cfg (the BN family only);
+    ``requires_grad=False`` freezes its affine parameters."""
     cfg = dict(norm_cfg or dict(type="BN"))
     if cfg.get("type", "BN") not in _BN_TYPES:
         raise KeyError(f"norm type {cfg['type']} is not in this slice")
-    return BatchNorm(num_features, eps=cfg.get("eps", 1e-5))
+    bn = BatchNorm(num_features, eps=cfg.get("eps", 1e-5))
+    bn.requires_grad_(cfg.get("requires_grad", True))
+    return bn
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout whose mask comes from ``generator`` (on ``x``'s
+    device); the identity when ``generator`` is None or ``p`` is 0."""
+    if generator is None or p == 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return x * keep / (1.0 - p)
 
 
 class ConvModule(nn.Module):
@@ -171,11 +186,15 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator):
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator):
     """Seeded random init with the JAX package's defaults: LeCun-normal
-    conv/linear/DCN weights, zero biases, identity BatchNorm.  Modules
-    with an ``init_extra(generator)`` hook then apply their own rule
-    (zero DCN offsets, the heatmap prior bias)."""
+    conv/linear/DCN weights, zero biases, identity BatchNorm and
+    LayerNorm.  Modules with an ``init_extra(generator)`` hook then apply
+    their own rule (zero DCN offsets, the heatmap prior bias, embeddings,
+    the deformable-attention offset grid)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear, ModulatedDeformConv)):
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.Linear, ModulatedDeformConv)):
             _lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()

@@ -1,6 +1,10 @@
 """Image FPN and BEV FPN necks (NCHW).
 
 Counterpart of ``distillbev_tpu/models/necks/fpn.py``.
+``FPN``: the mmdet FPN -- 1x1 laterals, nearest top-down add, 3x3
+output convs, then extra levels: stride-2 subsampling of the last output,
+or with ``add_extra_convs`` stride-2 3x3 convs (``fpn_convs.{i}`` past
+the inputs, after a ReLU with ``relu_before_extra_convs``).
 ``FPNForBEVDet``: 1x1 laterals, nearest top-down add, 3x3 output convs on
 the ``out_ids`` levels.  ``FPN_LSS``: bilinear (align_corners=True)
 upsample of the deep level, concat with the shallow one, two 3x3
@@ -25,6 +29,53 @@ def _resize_to(x, hw):
     ry = torch.arange(th, device=x.device) * h // th
     rx = torch.arange(tw, device=x.device) * w // tw
     return x[:, :, ry][:, :, :, rx]
+
+
+@NECKS.register_module()
+class FPN(nn.Module):
+    """Submodules ``lateral_convs.{i}.conv`` and ``fpn_convs.{i}.conv``
+    (extra convs continue the ``fpn_convs`` numbering, as mmdet)."""
+
+    def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
+                 out_channels: int = 256, num_outs: int = 4,
+                 start_level: int = 0, add_extra_convs: Any = False,
+                 relu_before_extra_convs: bool = False,
+                 norm_cfg: Any = None):
+        super().__init__()
+        self.start_level = start_level
+        self.num_outs = num_outs
+        self.add_extra_convs = add_extra_convs
+        self.relu_before_extra_convs = relu_before_extra_convs
+        used = list(in_channels)[start_level:]
+        self.lateral_convs = nn.ModuleList(
+            ConvModule(c, out_channels, 1, norm_cfg=norm_cfg, act=False)
+            for c in used)
+        n_extra = num_outs - len(used) if add_extra_convs else 0
+        self.fpn_convs = nn.ModuleList(
+            ConvModule(out_channels, out_channels, 3, padding=1,
+                       norm_cfg=norm_cfg, act=False)
+            for _ in range(len(used) + n_extra))
+        for conv in list(self.fpn_convs)[len(used):]:
+            conv.conv.stride = (2, 2)
+
+    def forward(self, feats):
+        laterals = [conv(feats[self.start_level + i])
+                    for i, conv in enumerate(self.lateral_convs)]
+        for i in range(len(laterals) - 1, 0, -1):
+            laterals[i - 1] = laterals[i - 1] + _resize_to(
+                laterals[i], laterals[i - 1].shape[2:])
+        outs = [self.fpn_convs[i](laterals[i])
+                for i in range(len(laterals))]
+        source = outs[-1]
+        for i in range(len(outs), self.num_outs):
+            if not self.add_extra_convs:
+                source = source[:, :, ::2, ::2]
+            else:
+                if self.relu_before_extra_convs:
+                    source = F.relu(source)
+                source = self.fpn_convs[i](source)
+            outs.append(source)
+        return tuple(outs)
 
 
 @NECKS.register_module()

@@ -1,22 +1,32 @@
-"""Per-sample row scatter-add: ``out[b, ids[b, r]] += upd[b, r]``.
+"""Row scatter-adds of the port, each a hand-written Hopper kernel.
 
-Replaces the TPU kernel ``distillbev_tpu/ops/pallas_scatter.py``
-``scatter_add_rows_batched`` (``_kernel_batched``), the LSS splat behind
-``bev_pool_batched``.  On a CUDA tensor the wrapper launches the
-hand-written Hopper kernel of ``csrc/scatter_rows.cu``; on a CPU tensor
-it takes the plain version below.  There is no fallback between the two.
+* ``scatter_add_rows_batched``: ``out[b, ids[b, r]] += upd[b, r]``.
+  Replaces the TPU kernel ``distillbev_tpu/ops/pallas_scatter.py``
+  ``scatter_add_rows_batched`` (``_kernel_batched``), the LSS splat
+  behind ``bev_pool_batched``; kernel ``csrc/scatter_rows.cu``.
+* ``scatter_add_rows_expand``: ``out[grp, ids[grp, s, q]] +=
+  concat_k(w[grp, q, 4s + k] * g[grp, q])``, the dvalue scatter of the
+  deformable-attention backward with the rank-1 update rows expanded
+  inside the kernel.  Replaces ``scatter_add_rows_expand``
+  (``_kernel_expand``) of the same file; kernel
+  ``csrc/scatter_rows_expand.cu``.
 
-Design (see the source note in ``csrc/scatter_rows.cu``): the TPU kernel
-keeps the whole 4.2 MB canvas in VMEM, which no Hopper block can hold.
-Here the wrapper prepares the row order -- a stable ``torch.sort`` of
-each sample's ids and ``torch.searchsorted`` for the start of every
-cell's segment -- and the kernel sums each cell's rows with one warp, in
-ascending original row order, in fp32, writing each cell once.  That is
-the TPU kernel's order of adds, so the result is deterministic.
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
+takes the plain version beside it.  There is no fallback between the
+two.
 
-Bound: memory.  At the flagship (R = 249,216, W = 64, size = 16,384)
-the function must move 63.8 MB of updates, 1 MB of ids and 4.2 MB of
-output, about 21 us at the H100's 3.35 TB/s.
+Design (see the source notes in ``csrc/``): the TPU kernels keep the
+whole accumulator (4.2 MB for the splat, up to 20.7 MB for one
+attention group) in VMEM, which no Hopper block can hold.  Here the
+wrapper prepares the row order -- a stable ``torch.sort`` of the row
+keys and ``torch.searchsorted`` for the start of every output row's
+segment -- and the kernel sums each output row with one warp, in
+ascending original row order, in fp32, writing each row once.  That is
+the TPU kernels' order of adds, so the result is deterministic.
+
+Bound: memory.  At the flagship splat (R = 249,216, W = 64, size =
+16,384) the function must move 63.8 MB of updates, 1 MB of ids and
+4.2 MB of output, about 21 us at the H100's 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -114,3 +124,120 @@ def scatter_add_rows_batched(ids: torch.Tensor, upd: torch.Tensor,
 
 
 scatter_add_rows_batched.launches = 0
+
+
+def scatter_add_rows_expand_plain(ids_sq: torch.Tensor, w: torch.Tensor,
+                                  g: torch.Tensor, size: int
+                                  ) -> torch.Tensor:
+    """Plain version: materialise the ``[G * lbp * Q, 4C]`` update rows
+    in the flat row order ``(group, sample, query)`` and ``index_add_``
+    them; ids outside ``[0, size)`` land in one trash row per group that
+    is sliced off."""
+    groups, lbp, q = ids_sq.shape
+    c = g.shape[2]
+    width = 4 * c
+    wk = w.reshape(groups, q, lbp, 4).permute(0, 2, 1, 3)[..., None]
+    upd = (wk * g.reshape(groups, 1, q, 1, c)).reshape(-1, width)
+    keep = (ids_sq >= 0) & (ids_sq < size)
+    idx = torch.where(keep, ids_sq, torch.full_like(ids_sq, size)).long()
+    idx = idx + (size + 1) * torch.arange(
+        groups, device=ids_sq.device).reshape(groups, 1, 1)
+    out = g.new_zeros(groups * (size + 1), width)
+    out.index_add_(0, idx.reshape(-1), upd)
+    return out.reshape(groups, size + 1, width)[:, :size]
+
+
+def _check_expand(ids_sq: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                  size: int):
+    if ids_sq.dtype != torch.int32:
+        raise TypeError(f"ids_sq must be int32, got {ids_sq.dtype}")
+    if w.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"w and g must be float32, got {w.dtype}, "
+                        f"{g.dtype}")
+    if ids_sq.dim() != 3 or w.dim() != 3 or g.dim() != 3:
+        raise ValueError("expected ids_sq [G, lbp, Q], w [G, Q, 4 lbp] and "
+                         "g [G, Q, C]")
+    groups, lbp, q = ids_sq.shape
+    if tuple(w.shape) != (groups, q, 4 * lbp) or tuple(g.shape[:2]) != (
+            groups, q) or g.shape[2] < 1:
+        raise ValueError(f"shapes do not agree: ids_sq {tuple(ids_sq.shape)}"
+                         f", w {tuple(w.shape)}, g {tuple(g.shape)}")
+    if not (ids_sq.device == w.device == g.device):
+        raise ValueError(f"ids_sq on {ids_sq.device}, w on {w.device}, g "
+                         f"on {g.device}")
+    if not (ids_sq.is_contiguous() and w.is_contiguous()
+            and g.is_contiguous()):
+        raise ValueError("ids_sq, w and g must be contiguous")
+    if size < 1 or groups * lbp * q >= 2 ** 31 or groups * size >= 2 ** 31:
+        raise ValueError(f"unsupported size {size} or shape "
+                         f"{tuple(ids_sq.shape)}")
+
+
+def expand_segment_sum(w: torch.Tensor, g: torch.Tensor,
+                       order: torch.Tensor, seg_start: torch.Tensor,
+                       lbp: int, size: int) -> torch.Tensor:
+    """Launch the kernel of ``csrc/scatter_rows_expand.cu``."""
+    groups, q, c = g.shape
+    width = 4 * c
+    fn = cuda_build.load("scatter_rows_expand"
+                         ).scatter_rows_expand_segment_sum
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(groups, size, width, dtype=torch.float32,
+                      device=g.device)
+    with torch.cuda.device(g.device):
+        err = fn(w.data_ptr(), g.data_ptr(), order.data_ptr(),
+                 seg_start.data_ptr(), out.data_ptr(), groups, lbp, q, size,
+                 width, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_rows_expand_segment_sum launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def expand_segment_order(ids_sq: torch.Tensor, size: int):
+    """Index preparation of the expand kernel: the flat rows ``(group,
+    sample, query)`` stably sorted by ``group * size + id`` (dropped ids
+    after every kept key) and the first sorted position of every key
+    ``0 .. G * size``."""
+    groups = ids_sq.shape[0]
+    keep = (ids_sq >= 0) & (ids_sq < size)
+    base = size * torch.arange(groups, dtype=torch.int32,
+                               device=ids_sq.device).reshape(groups, 1, 1)
+    keys = torch.where(keep, ids_sq + base,
+                       torch.full_like(ids_sq, groups * size))
+    order, seg_start = segment_order(keys.reshape(1, -1), groups * size)
+    return order[0], seg_start[0]
+
+
+def scatter_add_rows_expand(ids_sq: torch.Tensor, w: torch.Tensor,
+                            g: torch.Tensor, size: int) -> torch.Tensor:
+    """``out[grp, ids_sq[grp, s, q]] += concat_k(w[grp, q, 4s + k] *
+    g[grp, q])`` with out zero-initialised, per group.
+
+    Args:
+        ids_sq: ``[G, lbp, Q]`` int32 sample-major row ids per group; ids
+            outside ``[0, size)`` are dropped.
+        w: ``[G, Q, 4 * lbp]`` float32 corner weights, lane ``4s + k`` for
+            sample slot ``s`` and corner ``k``.
+        g: ``[G, Q, C]`` float32 per-query rows; corner ``k`` of a sample
+            writes ``w * g`` into output channels ``[kC, (k + 1)C)``.
+        size: accumulator rows per group.
+
+    Returns ``[G, size, 4C]`` float32, summed per output row in ascending
+    ``(sample, query)`` order.  ``scatter_add_rows_expand.launches``
+    counts the CUDA kernel's launches.
+    """
+    _check_expand(ids_sq, w, g, size)
+    if g.device.type == "cpu":
+        return scatter_add_rows_expand_plain(ids_sq, w, g, size)
+    if g.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g.device}")
+    order, seg_start = expand_segment_order(ids_sq, size)
+    out = expand_segment_sum(w, g, order, seg_start, ids_sq.shape[1], size)
+    scatter_add_rows_expand.launches += 1
+    return out
+
+
+scatter_add_rows_expand.launches = 0

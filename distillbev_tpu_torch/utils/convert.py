@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX ``BEVDepth4D`` variables -> this port's
-``state_dict``.
+"""Weight bridge: the JAX ``BEVDepth4D`` and ``BEVFormer`` variables ->
+this port's ``state_dict``.
 
 The port names its submodules as the reference mmdet3d state_dict, so
 the correspondence is the one ``tools/model_converters/
@@ -7,7 +7,12 @@ convert_torch_ckpt.py:bevdepth4d_name_map`` describes (reference torch
 name -> flax path).  This module keeps its own copy of that map and
 walks it the other way, converting layouts: conv kernels HWIO -> OIHW,
 Dense ``[in, out]`` -> ``[out, in]``, BatchNorm ``scale/bias`` and
-``mean/var`` -> ``weight/bias`` and ``running_mean/running_var``.
+``mean/var`` -> ``weight/bias`` and ``running_mean/running_var``,
+LayerNorm ``scale`` -> ``weight``.  ``bevformer_name_map`` adds the
+transformer: the deformable attentions' separate
+``sampling_offsets_bias`` becomes their offset Linear's bias, the flax
+multi-head attention's per-head query/key/value kernels become
+``in_proj_weight``, and embeddings keep their layout.
 """
 from __future__ import annotations
 
@@ -167,10 +172,10 @@ def bevdepth4d_name_map(depth: int = 50) -> Tuple[NameMap, NameMap]:
     return pm, sm
 
 
-def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
+def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
     if arr.ndim == 4:           # conv HWIO -> OIHW
         return arr.transpose(3, 2, 0, 1)
-    if arr.ndim == 2:           # Dense [in, out] -> Linear [out, in]
+    if arr.ndim == 2 and leaf == "kernel":   # Dense -> Linear [out, in]
         return arr.transpose(1, 0)
     return arr
 
@@ -201,6 +206,148 @@ def map_to_state_dict(flat: Mapping[str, np.ndarray], pm: NameMap,
             if key not in flat:
                 raise KeyError(f"{key} (for {tname}) not in the JAX "
                                f"variables")
-            arr = _to_torch_layout(np.asarray(flat[key], np.float32))
-            sd[tname] = torch.from_numpy(np.ascontiguousarray(arr))
+            arr = _to_torch_layout(np.asarray(flat[key], np.float32),
+                                   path[-1])
+            sd[tname] = torch.from_numpy(np.array(arr, copy=True))
+    return sd
+
+
+def _dense(pm: NameMap, tname: str, fpath: Tuple[str, ...],
+           bias: bool = True):
+    pm[f"{tname}.weight"] = fpath + ("kernel",)
+    if bias:
+        pm[f"{tname}.bias"] = fpath + ("bias",)
+
+
+def _layer_norm(pm: NameMap, tname: str, fpath: Tuple[str, ...]):
+    pm[f"{tname}.weight"] = fpath + ("scale",)
+    pm[f"{tname}.bias"] = fpath + ("bias",)
+
+
+def _deform_attn(pm: NameMap, tname: str, fpath: Tuple[str, ...],
+                 output_proj: bool = True):
+    pm[f"{tname}.sampling_offsets.weight"] = fpath + ("sampling_offsets",
+                                                      "kernel")
+    pm[f"{tname}.sampling_offsets.bias"] = fpath + ("sampling_offsets_bias",)
+    for name in ("attention_weights", "value_proj") + (
+            ("output_proj",) if output_proj else ()):
+        _dense(pm, f"{tname}.{name}", fpath + (name,))
+
+
+def _ffn_norms(pm: NameMap, tname: str, fpath: Tuple[str, ...]):
+    _dense(pm, f"{tname}.ffns.0.layers.0.0", fpath + ("ffn", "fc1"))
+    _dense(pm, f"{tname}.ffns.0.layers.1", fpath + ("ffn", "fc2"))
+    for i in range(3):
+        _layer_norm(pm, f"{tname}.norms.{i}", fpath + (f"norm{i + 1}",))
+
+
+def _reg_branch(pm: NameMap, tname: str, fpath: Tuple[str, ...], lvl: int,
+                num_reg_fcs: int = 2):
+    for i in range(num_reg_fcs):
+        _dense(pm, f"{tname}.{2 * i}", fpath + (f"reg_{lvl}_fc{i}",))
+    _dense(pm, f"{tname}.{2 * num_reg_fcs}", fpath + (f"reg_{lvl}_out",))
+
+
+def bevformer_name_map(cfg: dict) -> Tuple[NameMap, NameMap, Dict[str, Tuple[
+        str, ...]]]:
+    """Reference ``BEVFormer`` state_dict name -> flax path, for the model
+    ``cfg`` (params map, batch_stats map, and the flax prefixes of the
+    decoder self-attentions, whose query/key/value kernels merge into
+    one ``in_proj``)."""
+    bb, neck, head = cfg["img_backbone"], cfg["img_neck"], \
+        cfg["pts_bbox_head"]
+    tcfg = head["transformer"]
+    pm, sm = resnet_name_map(bb.get("depth", 50), "img_backbone.",
+                             ("backbone",))
+    n_in = len(neck["in_channels"]) - neck.get("start_level", 0)
+    for i in range(n_in):
+        _dense(pm, f"img_neck.lateral_convs.{i}.conv", ("neck",
+                                                        f"lateral_{i}"))
+        _dense(pm, f"img_neck.fpn_convs.{i}.conv", ("neck", f"fpn_conv_{i}"))
+    if neck.get("add_extra_convs"):
+        for i in range(n_in, neck.get("num_outs", n_in)):
+            _dense(pm, f"img_neck.fpn_convs.{i}.conv",
+                   ("neck", f"extra_conv_{i}"))
+    th, fh = "pts_bbox_head.", ("bbox_head",)
+    pm[f"{th}bev_embedding.weight"] = fh + ("bev_embedding",)
+    pm[f"{th}query_embedding.weight"] = fh + ("query_embedding",)
+    for e in ("row_embed", "col_embed"):
+        pm[f"{th}positional_encoding.{e}.weight"] = fh + (
+            "positional_encoding", e)
+    n_dec = tcfg["decoder"].get("num_layers", 6)
+    for lvl in range(n_dec):
+        for i in range(2):
+            _dense(pm, f"{th}cls_branches.{lvl}.{3 * i}",
+                   fh + (f"cls_{lvl}_fc{i}",))
+            _layer_norm(pm, f"{th}cls_branches.{lvl}.{3 * i + 1}",
+                        fh + (f"cls_{lvl}_ln{i}",))
+        _dense(pm, f"{th}cls_branches.{lvl}.6", fh + (f"cls_{lvl}_out",))
+        _reg_branch(pm, f"{th}reg_branches.{lvl}", fh, lvl)
+    tt, ft = f"{th}transformer.", fh + ("transformer",)
+    pm[f"{tt}level_embeds"] = ft + ("level_embeds",)
+    pm[f"{tt}cams_embeds"] = ft + ("cams_embeds",)
+    _dense(pm, f"{tt}reference_points", ft + ("reference_points",))
+    _dense(pm, f"{tt}can_bus_mlp.0", ft + ("can_bus_fc1",))
+    _dense(pm, f"{tt}can_bus_mlp.2", ft + ("can_bus_fc2",))
+    _layer_norm(pm, f"{tt}can_bus_mlp.norm", ft + ("can_bus_norm",))
+    for i in range(tcfg["encoder"].get("num_layers", 6)):
+        tl, fl = f"{tt}encoder.layers.{i}", ft + ("encoder", f"layer_{i}")
+        _deform_attn(pm, f"{tl}.attentions.0", fl + ("tsa",))
+        _deform_attn(pm, f"{tl}.attentions.1.deformable_attention",
+                     fl + ("sca", "deformable_attention"), output_proj=False)
+        _dense(pm, f"{tl}.attentions.1.output_proj", fl + ("sca",
+                                                           "output_proj"))
+        _ffn_norms(pm, tl, fl)
+    mha = {}
+    for i in range(n_dec):
+        tl, fl = f"{tt}decoder.layers.{i}", ft + ("decoder", f"layer_{i}")
+        mha[f"{tl}.attentions.0.attn"] = fl + ("self_attn", "attn")
+        _deform_attn(pm, f"{tl}.attentions.1", fl + ("cross_attn",))
+        _ffn_norms(pm, tl, fl)
+        if head.get("with_box_refine", True):
+            _reg_branch(pm, f"{tt}decoder.reg_branches.{i}",
+                        ft + ("decoder",), i)
+    return pm, sm, mha
+
+
+def unstack_scanned_layers(flat: Mapping[str, np.ndarray],
+                           num_layers: int) -> Dict[str, np.ndarray]:
+    """An encoder built with ``scan_layers=True`` stacks its layers'
+    variables under ``encoder/layers`` with a leading ``[num_layers]``
+    axis; split them into ``encoder/layer_{i}``."""
+    out = {}
+    for key, v in flat.items():
+        if "/encoder/layers/" in key:
+            for i in range(num_layers):
+                out[key.replace("/encoder/layers/",
+                                f"/encoder/layer_{i}/")] = np.asarray(v)[i]
+        else:
+            out[key] = v
+    return out
+
+
+def bevformer_params_to_torch(flat: Mapping[str, np.ndarray], cfg: dict
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """Flattened JAX ``BEVFormer`` variables of the model ``cfg`` -> the
+    port's state_dict (see ``jax_params_to_torch``)."""
+    enc = cfg["pts_bbox_head"]["transformer"]["encoder"]
+    if enc.get("scan_layers"):
+        flat = unstack_scanned_layers(flat, enc.get("num_layers", 6))
+    pm, sm, mha = bevformer_name_map(cfg)
+    sd = map_to_state_dict(flat, pm, sm)
+    for tname, fpath in mha.items():
+        key = "/".join(("params",) + fpath)
+
+        def get(*leaf):
+            return np.asarray(flat["/".join((key,) + leaf)], np.float32)
+
+        e = get("out", "kernel").shape[-1]
+        sd[f"{tname}.in_proj_weight"] = torch.from_numpy(np.concatenate(
+            [get(n, "kernel").reshape(e, -1).T for n in
+             ("query", "key", "value")]).copy())
+        sd[f"{tname}.in_proj_bias"] = torch.from_numpy(np.concatenate(
+            [get(n, "bias").reshape(-1) for n in ("query", "key", "value")]))
+        sd[f"{tname}.out_proj.weight"] = torch.from_numpy(
+            get("out", "kernel").reshape(-1, e).T.copy())
+        sd[f"{tname}.out_proj.bias"] = torch.tensor(get("out", "bias"))
     return sd

@@ -5,7 +5,8 @@
   ``chip_smoke.py``) names ``jax``, ``flax`` or ``distillbev_tpu`` in an
   import.
 * Its entry points default to the card (``device="cuda"``).
-* The JAX ``BEVDepth4D``'s variables load strictly into the port.
+* The JAX ``BEVDepth4D``'s and ``BEVFormer``'s variables load strictly
+  into the port; ``bevformer_r50_cfg()`` builds in both packages.
 """
 import inspect
 import os
@@ -63,7 +64,8 @@ def test_entry_points_default_to_the_card():
     from distillbev_tpu_torch.apis import flagship
     from distillbev_tpu_torch.apis.test import run_eval
     for fn in (flagship.build_flagship_student,
-               flagship.make_example_batch, run_eval):
+               flagship.make_example_batch, flagship.build_bevformer,
+               flagship.make_bevformer_example_batch, run_eval):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -112,3 +114,34 @@ def test_jax_variables_load_strictly():
         model.state_dict()[key].numpy(),
         flat["params/backbone/layer1_block0/conv2/kernel"].transpose(
             3, 2, 0, 1))
+
+
+def test_bevformer_r50_variables_load_strictly():
+    """The full BEVFormer-R50 config builds in both packages, and every
+    JAX variable of it has its place in the port (parameter shapes do
+    not depend on the image size, so the JAX side is traced on small
+    images)."""
+    import torch
+    from distillbev_tpu.models import build_detector as jax_build_detector
+    from distillbev_tpu_torch.apis.flagship import (
+        bevformer_r50_cfg, nuscenes_like_lidar2img)
+    from distillbev_tpu_torch.models import build_detector
+    from distillbev_tpu_torch.utils.convert import bevformer_params_to_torch
+    cfg = bevformer_r50_cfg()
+    h, w = 64, 96
+    l2i = np.tile(nuscenes_like_lidar2img(h, w)[None, None], (1, 2, 1, 1, 1))
+    shapes = jax.eval_shape(
+        jax_build_detector(cfg).init, jax.random.PRNGKey(0),
+        np.zeros((1, 2, 6, h, w, 3), np.float32),
+        np.zeros((1, 2, 18), np.float32), l2i, np.ones((1, 2), np.float32))
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    flat = {"/".join(k.key for k in path): np.zeros(leaf.shape, np.float32)
+            for path, leaf in leaves}
+    model = build_detector(cfg)
+    sd = bevformer_params_to_torch(flat, cfg)
+    model.load_state_dict(sd, strict=True)
+    n_jax = sum(int(np.prod(leaf.shape)) for path, leaf in leaves
+                if path[0].key == "params")
+    n_port = sum(p.numel() for p in model.parameters())
+    assert n_port == n_jax and n_port > 40_000_000
+    assert isinstance(sd["pts_bbox_head.bev_embedding.weight"], torch.Tensor)
