@@ -21,7 +21,23 @@ CUDA device, ``nvcc`` and nothing of JAX or the JAX package.  Phases:
    config's lr, lr_mult and clipping, launch counts set to 0 just before
    and read just after (18 expand launches a step: 6 TSA, 6 SCA, 6
    decoder backward calls); one more step under ``torch.profiler``; one
-   test-frame request through ``forward_test_frame`` + ``get_bboxes``.
+   test-frame request through ``forward_test_frame`` + ``get_bboxes``;
+4. teacher path, the LiDAR teachers at full width (300,000 points, a
+   512x512 pillar grid, SECOND + SECONDFPN to 384 channels, CenterHead
+   with 6 tasks and rotate NMS), fp32, batch 1, seeded random weights:
+   ``segmented_cumsum_rows`` against its plain version at the dynamic
+   teacher's real scan (its point mean, [300,000, 3] sums beside the
+   counts as one [300,000, 4] scan, taken from a forward) and at the
+   generic ``bev_pool`` over phase 2's splat rows with 64 channels
+   (whose canvas is also held against ``bev_pool_batched``'s); both tiny
+   teachers on the card against the same weights on the CPU;
+   ``run_eval(family="points")`` over 3 requests per teacher
+   (CenterPoint-pillar, DynamicCenterPoint) with launch counts set to 0
+   just before and read just after; one more request per teacher under
+   ``torch.profiler``.
+
+The scan kernel is first held against its plain version on edge cases
+right after the build, before any model is built.
 
 Every kernel check holds the kernel against its plain version, checks
 that two launches agree bitwise, times the kernel, its plain version and
@@ -45,6 +61,12 @@ FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 N_REQUESTS = 3
 N_TRAIN_STEPS = 3
 EXPAND_LAUNCHES_PER_STEP = 18   # 6 TSA + 6 SCA + 6 decoder backward calls
+# DynamicPillarFeatureNet's point mean (scatter_reduce 'mean' ->
+# segment_reduce_sorted): one scan of [N, 4], the three sums with the
+# count as a fourth column.  The pillar teacher's reductions are capped
+# windows (no scan), and its per-pillar max in the dynamic one a running
+# max.
+SCAN_LAUNCHES_PER_DYNAMIC_REQUEST = 1
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -579,6 +601,371 @@ def test_frame_requests(model, batch):
     return walls
 
 
+def kernel_device_ms(fn, names, iters: int = 10):
+    """Device time a call of each kernel whose name holds one of
+    ``names``, from ``torch.profiler`` over ``iters`` calls of ``fn``
+    (the launch gaps that CUDA events count between calls left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                out[name] += e.self_device_time_total / 1e3 / iters
+    return {name: round(ms, 5) for name, ms in out.items()}
+
+
+def scan_magnitude(values, keys):
+    """Running sum of |values| within each segment: the scale of the
+    rounding a sum in another order may differ by."""
+    from distillbev_tpu_torch.ops import segmented_scan
+    return segmented_scan.segmented_cumsum_rows_plain(
+        values.float().abs(), keys)
+
+
+def check_scan_case(name, values, keys, exact=False):
+    """segmented_cumsum_rows vs its plain version on one input: within
+    1e-5 of the segment's magnitude (bitwise when ``exact``), two
+    launches bitwise equal.  Returns the max abs error."""
+    import torch
+    from distillbev_tpu_torch.ops import segmented_scan as ss
+
+    out = ss.segmented_cumsum_rows(values, keys)
+    again = ss.segmented_cumsum_rows(values, keys)
+    plain = ss.segmented_cumsum_rows_plain(values, keys)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"scan {name}: two launches differ")
+    if exact and not torch.equal(out, plain):
+        raise AssertionError(f"scan {name}: not exact")
+    err = (out - plain).abs()
+    slack = 1e-5 * scan_magnitude(values, keys) + 1e-6 - err
+    if not bool((slack >= 0).all()):
+        raise AssertionError(f"scan {name}: off by {float(-slack.min())} "
+                             f"beyond 1e-5 of the segment magnitude")
+    n_seg = int((keys[1:] != keys[:-1]).sum()) + 1
+    print(f"scan {name}: [{values.shape[0]}, {values.shape[1]}] "
+          f"{str(values.dtype)[6:]}, {n_seg} segments, max_abs_err "
+          f"{float(err.max()):.3e}", flush=True)
+    return float(err.max())
+
+
+def check_scan_edge_cases(gen):
+    """The scan kernel on edge cases: every width of the CPU tests, bf16,
+    one segment over a million rows, every row its own segment, no N a
+    multiple of any tile, integer values (exact in any order), no rows
+    (no launch)."""
+    import torch
+    from distillbev_tpu_torch.ops import segmented_scan as ss
+    dev = gen.device
+    errs = {}
+    before = ss.segmented_cumsum_rows.launches
+    empty = ss.segmented_cumsum_rows(
+        torch.empty(0, 3, device=dev),
+        torch.empty(0, dtype=torch.int32, device=dev))
+    if empty.shape != (0, 3) or empty.dtype != torch.float32 or \
+            ss.segmented_cumsum_rows.launches != before:
+        raise AssertionError("scan of no rows: launched or ill formed")
+    n = 100_003
+    keys = torch.sort(torch.randint(0, n // 4, (n,), generator=gen,
+                                    device=dev, dtype=torch.int32)).values
+    for c in (1, 3, 8, 64):
+        vals = torch.randn(n, c, generator=gen, device=dev)
+        errs[f"C{c}"] = check_scan_case(f"C{c}", vals, keys)
+    errs["bf16_C64"] = check_scan_case(
+        "bf16_C64", torch.randn(n, 64, generator=gen, device=dev).to(
+            torch.bfloat16), keys)
+    m = 1_000_003
+    errs["one_segment"] = check_scan_case(
+        "one_segment", torch.randn(m, 3, generator=gen, device=dev),
+        torch.zeros(m, dtype=torch.int32, device=dev))
+    errs["singletons"] = check_scan_case(
+        "singletons", torch.randn(70_001, 8, generator=gen, device=dev),
+        torch.arange(70_001, dtype=torch.int32, device=dev))
+    ints = torch.randint(-8, 9, (1 << 20, 4), generator=gen, device=dev)
+    errs["integers_one_segment"] = check_scan_case(
+        "integers_one_segment", ints.to(torch.float32),
+        torch.full((1 << 20,), 5, dtype=torch.int32, device=dev),
+        exact=True)
+    return errs
+
+
+def scan_calls(fn):
+    """Run ``fn`` once; the (values, keys) of every segmented-scan call it
+    makes, exactly as the port makes them."""
+    import torch
+    from distillbev_tpu_torch.ops import segmented
+
+    real = segmented.segmented_cumsum_rows
+    calls = []
+
+    def record(values, keys):
+        calls.append((values.clone(), keys.clone()))
+        return real(values, keys)
+
+    segmented.segmented_cumsum_rows = record
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        segmented.segmented_cumsum_rows = real
+    return calls
+
+
+def check_bev_pool_generic(ids_main, size, nx, gen):
+    """The generic ``bev_pool`` over the splat's rows (phase 2's cell
+    ids) with 64 random channels, against ``bev_pool_batched``'s canvas;
+    returns the scan's (values, keys) at this shape and the two splats'
+    times."""
+    import torch
+    from distillbev_tpu_torch.ops.bev_pool import bev_pool, bev_pool_batched
+
+    dev = ids_main.device
+    b, r = ids_main.shape
+    ny = size // nx
+    feats = torch.randn(b, r, 64, generator=gen, device=dev)
+    valid = ids_main < size
+    ids = ids_main.long()
+    coords = torch.stack([torch.arange(b, device=dev)[:, None].expand(b, r),
+                          ids // nx, ids % nx], -1).reshape(-1, 3).to(
+                              torch.int32)
+    canvas = []
+    calls = scan_calls(lambda: canvas.append(bev_pool(
+        feats.reshape(-1, 64), coords, valid.reshape(-1), b, ny, nx)))
+    if len(calls) != 1:
+        raise AssertionError(f"bev_pool made {len(calls)} scans")
+    with torch.inference_mode():
+        batched = bev_pool_batched(feats, ids_main, valid, ny, nx)
+        mag = bev_pool_batched(feats.abs(), ids_main, valid, ny, nx)
+        err = (canvas[0] - batched).abs()
+        if not bool((err <= 1e-5 * mag + 1e-5).all()):
+            raise AssertionError("bev_pool vs bev_pool_batched: canvases "
+                                 "differ beyond rounding")
+        generic_ms = cuda_time_ms(lambda: bev_pool(
+            feats.reshape(-1, 64), coords, valid.reshape(-1), b, ny, nx),
+            iters=10)
+        batched_ms = cuda_time_ms(lambda: bev_pool_batched(
+            feats, ids_main, valid, ny, nx), iters=10)
+    print(f"bev_pool generic vs batched over the splat rows [{b * r}, 64]: "
+          f"max_abs_err {float(err.max()):.3e}; {generic_ms:.4f} ms "
+          f"against {batched_ms:.4f} ms", flush=True)
+    return calls[0], dict(generic_ms=generic_ms, batched_ms=batched_ms,
+                          canvas_max_abs_err=float(err.max()))
+
+
+def scan_shape_report(name, values, keys):
+    """Time the scan kernel, its plain version and ``index_add_`` of the
+    segment sums the scan feeds (no single PyTorch call computes a
+    segmented scan) at one real shape; compute the bound."""
+    import torch
+    from distillbev_tpu_torch.ops import segmented_scan as ss
+
+    err = check_scan_case(name, values, keys)
+    n, c = values.shape
+    with torch.inference_mode():
+        ms = cuda_time_ms(lambda: ss.segmented_cumsum_rows(values, keys))
+        plain_ms = cuda_time_ms(lambda: ss.segmented_cumsum_rows_plain(
+            values, keys), iters=5, warmup=1)
+        idx = keys.long()
+        buf = torch.zeros(int(idx.max()) + 1, c, device=values.device)
+        rows = values.float()
+        index_add_ms = cuda_time_ms(lambda: buf.index_add_(0, idx, rows))
+        longest = int(torch.unique_consecutive(keys, return_counts=True)[1]
+                      .max())
+        device_ms = kernel_device_ms(
+            lambda: ss.segmented_cumsum_rows(values, keys),
+            ("tile_scan_kernel", "carry_scan_kernel", "carry_fixup_kernel"))
+    # least work: read the values and keys once, write the fp32 output
+    # once; one fp32 add per value
+    nbytes = n * c * values.element_size() + 4 * n + 4 * n * c
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n * c / FP32_FLOPS
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    print(f"scan {name}: {ms:.4f} ms a call (device time of its passes "
+          f"{device_ms}; bound {bound_ms:.4f} ms, {nbytes} B), plain "
+          f"{plain_ms:.4f} ms, index_add_ of the segment sums "
+          f"{index_add_ms:.4f} ms; longest segment {longest} rows",
+          flush=True)
+    return dict(rows=n, channels=c, dtype=str(values.dtype)[6:], ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes"
+                if t_bytes >= t_ops else "operations", bytes=nbytes,
+                index_add_segment_sums_ms=index_add_ms, max_abs_err=err,
+                longest_segment=longest)
+
+
+def check_tiny_teachers_against_cpu(seed: int):
+    """Both tiny teachers on the card against the same weights on the CPU
+    (whose path the CPU tests hold against the JAX package)."""
+    import copy
+    import torch
+    from distillbev_tpu_torch.apis.flagship import build_teacher
+
+    worst = {}
+    for kind in ("pillar", "dynamic"):
+        cpu_model, batch = build_teacher(kind, tiny=True, seed=seed,
+                                         device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).cuda()
+        with torch.inference_mode():
+            ref, ref_bundle = cpu_model(batch.points, batch.point_mask)
+            got, bundle = gpu_model(batch.points.cuda(),
+                                    batch.point_mask.cuda())
+        pairs = [(bundle.canvas, ref_bundle.canvas),
+                 (bundle.neck_feat, ref_bundle.neck_feat)] + [
+            (g[k], r[k]) for g, r in zip(got, ref) for k in r]
+        worst[kind] = 0.0
+        for g, r in pairs:
+            torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-3)
+            worst[kind] = max(worst[kind], float((g.cpu() - r).abs().max()))
+        print(f"tiny {kind} teacher cuda vs cpu: canvas, neck and head maps "
+              f"max_abs_err {worst[kind]:.3e}", flush=True)
+    return worst
+
+
+def teacher_data_report(model, batch):
+    """What the synthetic cloud keeps: pillars and points within the voxel
+    budget (and the per-pillar cap of the hard teacher); in the dynamic
+    teacher the dropped points form one segment of the scatter's scan."""
+    import torch
+    from distillbev_tpu_torch.ops.voxelize import (compute_voxel_coords,
+                                                   grid_xyz,
+                                                   sorted_voxel_info,
+                                                   unique_voxels)
+
+    vl = model.pts_voxel_layer
+    vs, pcr = tuple(vl["voxel_size"]), tuple(vl["point_cloud_range"])
+    gx, gy, gz = grid_xyz(vs, pcr)
+    pts, mask = batch.points[0], batch.point_mask[0]
+    with torch.inference_mode():
+        coords, ok = compute_voxel_coords(pts, vs, pcr)
+        ok = ok & mask
+        occupied = int(torch.unique(coords[ok][:, 1] * gx + coords[ok][:, 2])
+                       .numel())
+        if hasattr(model, "max_voxels"):
+            p2v, _, nvox = unique_voxels(coords, ok, (gz, gy, gx),
+                                         model.max_voxels)
+            kept = int((p2v < model.max_voxels).sum())
+        else:
+            info = sorted_voxel_info(pts, mask, vs, pcr,
+                                     vl["max_num_points"],
+                                     vl["max_voxels"][0], presorted=True)
+            nvox, kept = info.num_voxels, int(info.keep.sum())
+    return dict(points=int(pts.shape[0]), in_grid=int(ok.sum()),
+                occupied_pillars=occupied, kept_pillars=int(nvox),
+                kept_points=kept, dropped_points=int(pts.shape[0]) - kept)
+
+
+def serve_teacher(model, kind: str, seed: int, counters):
+    """run_eval(family="points") over N_REQUESTS synthetic clouds with the
+    launch counts set to 0 just before and read just after; checks the
+    head maps are finite and the decoded results well formed."""
+    import torch
+    from distillbev_tpu_torch.apis.flagship import make_points_example_batch
+    from distillbev_tpu_torch.apis.test import run_eval
+
+    requests = [make_points_example_batch(1, seed=seed + i, device="cuda")
+                for i in range(N_REQUESTS)]
+    head_ok = []
+    hook = model.pts_bbox_head.register_forward_hook(
+        lambda mod, inp, out: head_ok.append(all(
+            bool(torch.isfinite(v).all()) for task in out
+            for v in task.values())))
+    stamps = []
+
+    def loader():
+        for i, batch in enumerate(requests):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield {"points": batch.points, "point_mask": batch.point_mask,
+                   "img_metas": [{"sample_idx": f"{kind}{i}"}]}
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        results = run_eval(model, loader(), family="points", device="cuda")
+    finally:
+        hook.remove()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    latencies = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    if head_ok != [True] * N_REQUESTS or len(results) != N_REQUESTS:
+        raise AssertionError(f"{kind}: head maps finite {head_ok}, "
+                             f"{len(results)} results")
+    valid_boxes = []
+    for token, (boxes, scores, labels, valid) in results.items():
+        if boxes.shape != (500, 9) or scores.shape != (500,):
+            raise AssertionError(f"{token}: boxes {boxes.shape}")
+        if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
+            raise AssertionError(f"{token}: non-finite boxes")
+        if labels.min() < 0 or labels.max() >= 10:
+            raise AssertionError(f"{token}: labels out of range")
+        valid_boxes.append(int(valid.sum()))
+        print(f"{token}: {latencies[len(valid_boxes) - 1]:.1f} ms, "
+              f"{valid_boxes[-1]} valid boxes, top score "
+              f"{float(scores.max()):.4f}", flush=True)
+    prof_batch = make_points_example_batch(1, seed=seed + N_REQUESTS,
+                                           device="cuda")
+
+    def request():
+        preds, _ = model(prof_batch.points, prof_batch.point_mask)
+        model.get_bboxes(preds)
+
+    with torch.inference_mode():
+        prof = profiled(request)
+    return dict(latency_ms=latencies, peak_mem_bytes=peak,
+                valid_boxes=valid_boxes, launches=launches, profile=prof)
+
+
+def teacher_path(ids_main, size_main, nx, seed, gen, counters):
+    """Phase 4: the scan kernel at its real shapes, the tiny teachers
+    card vs CPU, then each full-width teacher served."""
+    import torch
+    from distillbev_tpu_torch.apis.flagship import build_teacher
+
+    (bp_values, bp_keys), bev_pool_times = check_bev_pool_generic(
+        ids_main, size_main, nx, gen)
+    tiny_err = check_tiny_teachers_against_cpu(seed)
+    served, shapes, data = {}, {}, {}
+    for kind in ("dynamic", "pillar"):
+        t0 = time.perf_counter()
+        model, batch = build_teacher(kind, seed=seed, device="cuda")
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{kind} teacher: {n_params} parameters, built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        data[kind] = teacher_data_report(model, batch)
+        print(f"{kind} teacher cloud: {data[kind]}", flush=True)
+        if kind == "dynamic":
+            calls = scan_calls(lambda: model(batch.points, batch.point_mask))
+            if len(calls) != SCAN_LAUNCHES_PER_DYNAMIC_REQUEST:
+                raise AssertionError(f"dynamic forward made {len(calls)} "
+                                     f"scans")
+            shapes["vfe_mean"] = scan_shape_report("vfe_mean", *calls[0])
+            del calls
+        served[kind] = serve_teacher(model, kind, seed, counters)
+        want = {name: 0 for name in counters}
+        if kind == "dynamic":
+            want["segmented_cumsum_rows"] = \
+                SCAN_LAUNCHES_PER_DYNAMIC_REQUEST * N_REQUESTS
+        if served[kind]["launches"] != want:
+            raise AssertionError(f"{kind} serve launches "
+                                 f"{served[kind]['launches']}, expected "
+                                 f"{want}")
+        del model, batch
+        torch.cuda.empty_cache()
+    shapes["bev_pool"] = scan_shape_report("bev_pool", bp_values, bp_keys)
+    return served, shapes, dict(tiny_cuda_vs_cpu_max_abs_err=tiny_err,
+                                bev_pool=bev_pool_times, clouds=data)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -589,6 +976,7 @@ def main() -> int:
                                                     build_flagship_student)
     from distillbev_tpu_torch.ops import cuda_build
     from distillbev_tpu_torch.ops import scatter_rows as sr
+    from distillbev_tpu_torch.ops import segmented_scan as ss
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -622,6 +1010,7 @@ def main() -> int:
 
     seed = 0
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    scan_edge_errs = check_scan_edge_cases(gen)
     t0 = time.perf_counter()
     model, batch = build_flagship_student(tiny=False, seed=seed,
                                           device="cuda")
@@ -646,7 +1035,8 @@ def main() -> int:
                                   model.img_view_transformer.numC_Trans,
                                   gen)]
     counters = {"scatter_add_rows_batched": sr.scatter_add_rows_batched,
-                "scatter_add_rows_expand": sr.scatter_add_rows_expand}
+                "scatter_add_rows_expand": sr.scatter_add_rows_expand,
+                "segmented_cumsum_rows": ss.segmented_cumsum_rows}
     tiny_err = check_tiny_against_cpu(seed)
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -655,12 +1045,14 @@ def main() -> int:
     serve_peak = torch.cuda.max_memory_allocated()
     serve_launches = {name: fn.launches for name, fn in counters.items()}
     if serve_launches != {"scatter_add_rows_batched": 2 * N_REQUESTS,
-                          "scatter_add_rows_expand": 0}:
+                          "scatter_add_rows_expand": 0,
+                          "segmented_cumsum_rows": 0}:
         raise AssertionError(f"serve launches {serve_launches}, expected "
                              f"{2 * N_REQUESTS} splats")
     kernels[0]["launches"] = serve_launches["scatter_add_rows_batched"]
     serve_prof = profile_request(model, seed + N_REQUESTS)
-    del model, batch, ids_main
+    nx_main = int(model.img_view_transformer.geo.nx[0])
+    del model, batch
     torch.cuda.empty_cache()
 
     # phase 3: train path -- the dvalue kernel, then BEVFormer-R50 steps
@@ -676,12 +1068,31 @@ def main() -> int:
     train = train_bevformer(model, batch, seed, counters)
     want = {"scatter_add_rows_batched": 0,
             "scatter_add_rows_expand": EXPAND_LAUNCHES_PER_STEP *
-            N_TRAIN_STEPS}
+            N_TRAIN_STEPS, "segmented_cumsum_rows": 0}
     if train["launches"] != want:
         raise AssertionError(f"train launches {train['launches']}, "
                              f"expected {want}")
     kernels[1]["launches"] = train["launches"]["scatter_add_rows_expand"]
     test_ms = test_frame_requests(model, batch)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # phase 4: teacher path -- the scan kernel, then the LiDAR teachers
+    teacher, scan_shapes, teacher_info = teacher_path(
+        ids_main, size_main, nx_main, seed, gen, counters)
+    main_shape = scan_shapes["vfe_mean"]
+    kernels.append(dict(
+        name="segmented_cumsum_rows", route="cuda",
+        source="distillbev_tpu_torch/csrc/segmented_scan.cu",
+        replaces="distillbev_tpu/ops/pallas_segmented.py:79",
+        launches=teacher["dynamic"]["launches"]["segmented_cumsum_rows"],
+        max_abs_err=max(v["max_abs_err"] for v in scan_shapes.values()),
+        ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+        bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
+        library_ms=None, library_note="no single PyTorch call computes a "
+        "segmented scan; index_add_ of the segment sums it feeds is in "
+        "shapes", timed_shape="vfe_mean", shapes=scan_shapes,
+        edge_max_abs_err=scan_edge_errs))
 
     print(json.dumps({"profile": serve_prof}), flush=True)
     print(json.dumps({"serve": {
@@ -695,6 +1106,13 @@ def main() -> int:
         "steps": N_TRAIN_STEPS, **train,
         "tiny_cuda_vs_cpu_max_abs_err": tiny_bf_err,
         "test_frame_ms": test_ms}}), flush=True)
+    print(json.dumps({"teacher_profile": {
+        kind: teacher[kind].pop("profile") for kind in teacher}}),
+        flush=True)
+    print(json.dumps({"teacher": {
+        "model": "CenterPoint-pillar and DynamicCenterPoint, 300,000 "
+                 "points, 512x512 pillars, fp32, batch 1",
+        "requests": N_REQUESTS, **teacher, **teacher_info}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,13 @@ factories (CenterPoint-pillar teacher, BEVDepth4D-R50 distill student),
 the camera part of ``make_example_batch`` as torch tensors, and
 ``build_flagship_student``, the student-only counterpart of
 ``build_flagship``: a ``BEVDepth4D`` built from the distill cfg's model
-block with a seeded random init.  The teacher, points and GT of the
-distill batch come with the distill train step.
+block with a seeded random init.
+
+The LiDAR teachers: ``dynamic_centerpoint_teacher_cfg``,
+``sort_points_by_pillar``, ``make_points_example_batch`` (the points,
+point mask and GT of ``make_example_batch``, drawn as JAX draws them) and
+``build_teacher`` (CenterPoint-pillar or DynamicCenterPoint with seeded
+weights).
 
 The BEVFormer track: ``bevformer_r50_cfg`` (the student of
 ``configs/lidar2camera_bev_distillation/teacher_to_bevformer/
@@ -20,7 +25,7 @@ six-camera rig, as ``tools/analysis_tools/bench_bevformer.py``) and
 from __future__ import annotations
 
 import copy
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -93,7 +98,8 @@ def _train_test_cfg(grid: int, out_size_factor: int):
 def centerpoint_teacher_cfg():
     """CenterPoint-pillar teacher (reference _base_/models/
     centerpoint_02pillar_second_secfpn_nus.py): 512 grid, SECONDFPN ->
-    384ch at 128x128.  Its modules come with the training slice."""
+    384ch at 128x128, on the fused sorted-pillar path with presorted
+    points."""
     train_cfg, test_cfg = _train_test_cfg(512, 4)
     return dict(
         type="CenterPoint",
@@ -120,6 +126,22 @@ def centerpoint_teacher_cfg():
             use_conv_for_no_stride=True),
         pts_bbox_head=_common_head(384, 4),
         train_cfg=train_cfg, test_cfg=test_cfg)
+
+
+def dynamic_centerpoint_teacher_cfg():
+    """DynamicCenterPoint teacher (``configs/dynamic_centerpoint/
+    dynamic_centerpoint_02pillar_second_secfpn_4x8_cyclic_20e_nus.py``):
+    the pillar teacher with ``DynamicPillarFeatureNet`` and 32,000
+    voxels.  MVP is this with ``in_channels=17, virtual=True``."""
+    cfg = centerpoint_teacher_cfg()
+    del cfg["presorted_points"]
+    cfg.update(type="DynamicCenterPoint", max_voxels=32000)
+    cfg["pts_voxel_encoder"] = dict(
+        type="DynamicPillarFeatureNet", in_channels=5, feat_channels=[64],
+        with_distance=False, voxel_size=tuple(VOXEL_SIZE),
+        point_cloud_range=tuple(POINT_CLOUD_RANGE),
+        norm_cfg=dict(type="BN1d", eps=1e-3, momentum=0.01))
+    return cfg
 
 
 def bevdepth4d_distill_cfg(img_backbone_depth: int = 50):
@@ -212,6 +234,27 @@ def _shrink_student_grids(s_cfg: dict, factor: int = 4):
     s_cfg["img_view_transformer"]["grid_config"] = gc
 
 
+def sort_points_by_pillar(pts: np.ndarray, voxel_size=None,
+                          point_cloud_range=None) -> np.ndarray:
+    """Host-side stable sort of ``[B, N, C]`` points by flat pillar key
+    (out-of-grid points last), what the pipeline's SortPointsByPillar
+    does per sample; the teacher's presorted path relies on it."""
+    vs = np.asarray(voxel_size or VOXEL_SIZE, np.float32)
+    pcr = point_cloud_range or POINT_CLOUD_RANGE
+    lo = np.asarray(pcr[:3], np.float32)
+    hi = np.asarray(pcr[3:], np.float32)
+    grid = np.floor((hi - lo) / vs + 0.5).astype(np.int64)
+    out = np.empty_like(pts)
+    for b in range(pts.shape[0]):
+        c = np.floor((pts[b, :, :3] - lo) / vs).astype(np.int64)
+        valid = ((c >= 0).all(1) & (c[:, 0] < grid[0]) &
+                 (c[:, 1] < grid[1]) & (c[:, 2] < grid[2]))
+        key = (c[:, 2] * grid[1] + c[:, 1]) * grid[0] + c[:, 0]
+        key = np.where(valid, key, np.iinfo(np.int64).max)
+        out[b] = pts[b, np.argsort(key, kind="stable")]
+    return out
+
+
 def make_example_batch(batch_size: int = 1, n_cams: int = 6,
                        img_hw: Tuple[int, int] = (256, 704), seed: int = 0,
                        device: str = "cuda"):
@@ -287,6 +330,108 @@ def build_flagship_student(batch_size: int = 1, tiny: bool = False,
     batch = make_example_batch(batch_size, img_hw=hw, seed=seed,
                                device=device)
     return student, batch
+
+
+MAX_POINTS = 300_000     # 10-sweep nuScenes padded budget
+
+
+class PointsBatch(NamedTuple):
+    """A LiDAR batch: ``points [B, N, 5]`` (x, y, z, intensity, time lag;
+    sorted by pillar key), ``point_mask [B, N]``, ``gt_boxes [B, M, 9]``,
+    ``gt_labels [B, M]``, ``gt_mask [B, M]``."""
+    points: torch.Tensor
+    point_mask: torch.Tensor
+    gt_boxes: torch.Tensor
+    gt_labels: torch.Tensor
+    gt_mask: torch.Tensor
+
+
+def make_points_example_batch(batch_size: int = 1,
+                              n_points: int = MAX_POINTS, n_cams: int = 6,
+                              img_hw: Tuple[int, int] = (256, 704),
+                              seed: int = 0, voxel_size=None,
+                              device: str = "cuda") -> PointsBatch:
+    """The points, point mask and GT of the JAX ``make_example_batch``:
+    the same numpy draws in the same order (the camera depth draws,
+    whose shape follows ``n_cams`` and ``img_hw``, come first), so one
+    seed gives one cloud.  ``n_points`` points uniform over +-51 m, sorted
+    by pillar key for ``voxel_size``; 32 real GT boxes of ``MAX_OBJS``."""
+    rng = np.random.RandomState(seed)
+    b = batch_size
+    fh, fw = img_hw[0] // 16, img_hw[1] // 16
+    rng.uniform(0, 60, (b, n_cams, fh, fw))      # depth_gt's draws
+    rng.rand(b, n_cams, fh, fw)
+    pts = np.zeros((b, n_points, 5), np.float32)
+    pts[..., :2] = rng.uniform(-51, 51, (b, n_points, 2))
+    pts[..., 2] = rng.uniform(-4, 2, (b, n_points))
+    pts[..., 3] = rng.uniform(0, 255, (b, n_points))
+    pts[..., 4] = rng.uniform(0, 0.5, (b, n_points))
+    pts = sort_points_by_pillar(pts, voxel_size=voxel_size)
+    gt = np.zeros((b, MAX_OBJS, 9), np.float32)
+    n_real = 32
+    gt[:, :n_real, :2] = rng.uniform(-40, 40, (b, n_real, 2))
+    gt[:, :n_real, 2] = rng.uniform(-2, 0, (b, n_real))
+    gt[:, :n_real, 3:6] = rng.uniform(0.5, 8, (b, n_real, 3))
+    gt[:, :n_real, 6] = rng.uniform(-np.pi, np.pi, (b, n_real))
+    labels = rng.randint(0, 10, (b, MAX_OBJS))
+    gmask = np.zeros((b, MAX_OBJS), bool)
+    gmask[:, :n_real] = True
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return PointsBatch(t(pts), t(np.ones((b, n_points), bool), torch.bool),
+                       t(gt), t(labels, torch.int64), t(gmask, torch.bool))
+
+
+def _shrink_teacher_grid(t_cfg: dict, factor: int = 4):
+    """Coarsen the teacher's pillar grid by ``factor`` in place (512 ->
+    128) and cut its voxel budget to 512, as the JAX tiny recipe
+    (``build_flagship(tiny=True)``) does; returns the voxel size."""
+    vs = [VOXEL_SIZE[0] * factor, VOXEL_SIZE[1] * factor, VOXEL_SIZE[2]]
+    grid = 512 // factor
+    t_cfg["pts_voxel_layer"]["voxel_size"] = vs
+    t_cfg["pts_voxel_layer"]["max_voxels"] = (512, 512)
+    t_cfg["pts_voxel_encoder"]["voxel_size"] = tuple(vs)
+    t_cfg["pts_middle_encoder"]["output_shape"] = (grid, grid)
+    t_cfg["pts_bbox_head"]["bbox_coder"]["voxel_size"] = vs[:2]
+    t_cfg["train_cfg"]["pts"]["grid_size"] = [grid, grid, 1]
+    t_cfg["train_cfg"]["pts"]["voxel_size"] = vs
+    t_cfg["test_cfg"]["pts"]["voxel_size"] = vs[:2]
+    if "max_voxels" in t_cfg:
+        t_cfg["max_voxels"] = 512
+    return vs
+
+
+def build_teacher(kind: str = "pillar", tiny: bool = False, seed: int = 0,
+                  device: str = "cuda"):
+    """Build ``(teacher, batch)``: the eval-mode LiDAR teacher on
+    ``device`` (``kind`` "pillar": ``centerpoint_teacher_cfg``;
+    "dynamic": ``dynamic_centerpoint_teacher_cfg``), randomly
+    initialised from ``seed`` with the JAX package's init rules, and a
+    one-sample ``PointsBatch`` of 300,000 points.
+
+    tiny=True is the JAX tiny recipe's teacher: a 128x128 grid, 512
+    voxels and 2,048 points, at the full widths."""
+    from ..models import build_detector
+    from ..models.layers import init_weights
+
+    cfgs = {"pillar": centerpoint_teacher_cfg,
+            "dynamic": dynamic_centerpoint_teacher_cfg}
+    if kind not in cfgs:
+        raise ValueError(f"unknown teacher kind {kind!r}")
+    cfg = cfgs[kind]()
+    if tiny:
+        vs = _shrink_teacher_grid(cfg)
+        batch = make_points_example_batch(1, 2048, img_hw=(64, 176),
+                                          seed=seed, voxel_size=vs,
+                                          device=device)
+    else:
+        batch = make_points_example_batch(1, seed=seed, device=device)
+    model = build_detector(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval(), batch
 
 
 BEVFORMER_CLASSES = 10

@@ -1,8 +1,10 @@
 """Evaluation loop: loader -> forward + decode -> per-token results.
 
 Counterpart of ``distillbev_tpu/apis/test.py:run_eval`` for the camera
-family (``infer_img``): the student's forward and ``get_bboxes`` per
-batch, results gathered by sample token.
+family (``infer_img``: the student's forward) and the points family
+(``infer_points``: a LiDAR teacher's forward), each followed by
+``get_bboxes``; results gathered by sample token.  Flip TTA is not
+ported.
 """
 from __future__ import annotations
 
@@ -23,18 +25,26 @@ def run_eval(model, loader, family: str = "img",
     """Run inference over ``loader``; return ``{token: (boxes, scores,
     labels, valid)}`` numpy results.
 
-    Each loader item is a dict with ``img_inputs`` (an ``ImgInputs`` or
-    the tuple of its arrays) and ``img_metas`` (one dict per sample, the
-    token under ``sample_idx``).  Only the camera family is ported.
+    Each loader item is a dict with ``img_metas`` (one dict per sample,
+    the token under ``sample_idx``) and, for family "img",
+    ``img_inputs`` (an ``ImgInputs`` or the tuple of its arrays); for
+    family "points", ``points [B, N, C]`` and ``point_mask [B, N]``.
     """
-    if family != "img":
-        raise ValueError(f"family {family!r} is not ported; only 'img'")
+    if family not in ("img", "points"):
+        raise ValueError(f"family {family!r} is not ported; 'img' or "
+                         f"'points'")
     model.eval()
     results = {}
     with torch.inference_mode():
         for raw in loader:
-            inputs = _inputs_to_device(raw["img_inputs"], device)
-            preds, _, _ = model(inputs)
+            if family == "img":
+                preds = model(_inputs_to_device(raw["img_inputs"],
+                                                device))[0]
+            else:
+                preds, _ = model(torch.as_tensor(raw["points"],
+                                                 device=device),
+                                 torch.as_tensor(raw["point_mask"],
+                                                 device=device))
             dec = model.get_bboxes(preds)
             boxes, scores, labels, valid = (
                 t.cpu().numpy() for t in dec)

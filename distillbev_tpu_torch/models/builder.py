@@ -17,6 +17,8 @@ LOSSES = Registry("losses", parent=MODELS)
 DETECTORS = Registry("detectors", parent=MODELS)
 TRANSFORMERS = Registry("transformers", parent=MODELS)
 ATTENTION = Registry("attention", parent=MODELS)
+VOXEL_ENCODERS = Registry("voxel_encoders", parent=MODELS)
+MIDDLE_ENCODERS = Registry("middle_encoders", parent=MODELS)
 
 
 def build_backbone(cfg):
@@ -41,6 +43,14 @@ def build_transformer(cfg):
 
 def build_attention(cfg):
     return build_from_cfg(cfg, ATTENTION)
+
+
+def build_voxel_encoder(cfg):
+    return build_from_cfg(cfg, VOXEL_ENCODERS)
+
+
+def build_middle_encoder(cfg):
+    return build_from_cfg(cfg, MIDDLE_ENCODERS)
 
 
 def build_detector(cfg):

@@ -178,15 +178,16 @@ class ModulatedDeformConv(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator):
-    fan_in = w[0].numel()
+def _lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                   fan_in: Optional[int] = None):
+    fan_in = fan_in or w[0].numel()
     w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
 
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator):
     """Seeded random init with the JAX package's defaults: LeCun-normal
-    conv/linear/DCN weights, zero biases, identity BatchNorm and
+    conv/deconv/linear/DCN weights, zero biases, identity BatchNorm and
     LayerNorm.  Modules with an ``init_extra(generator)`` hook then apply
     their own rule (zero DCN offsets, the heatmap prior bias, embeddings,
     the deformable-attention offset grid)."""
@@ -194,8 +195,13 @@ def init_weights(module: nn.Module, generator: torch.Generator):
         if isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, (nn.Conv2d, nn.Linear, ModulatedDeformConv)):
-            _lecun_normal_(m.weight, generator)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                            ModulatedDeformConv)):
+            w = m.weight
+            # a transposed conv's weight is [in, out, kh, kw]: its fan-in
+            # is in * kh * kw, as flax counts it for [kh, kw, in, out]
+            _lecun_normal_(w, generator, w.shape[0] * w[0, 0].numel()
+                           if isinstance(m, nn.ConvTranspose2d) else None)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):

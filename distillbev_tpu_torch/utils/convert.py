@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX ``BEVDepth4D`` and ``BEVFormer`` variables ->
-this port's ``state_dict``.
+"""Weight bridge: the JAX ``BEVDepth4D``, ``BEVFormer`` and LiDAR-teacher
+(``CenterPoint``, ``DynamicCenterPoint``) variables -> this port's
+``state_dict``.
 
 The port names its submodules as the reference mmdet3d state_dict, so
 the correspondence is the one ``tools/model_converters/
@@ -13,6 +14,9 @@ transformer: the deformable attentions' separate
 ``sampling_offsets_bias`` becomes their offset Linear's bias, the flax
 multi-head attention's per-head query/key/value kernels become
 ``in_proj_weight``, and embeddings keep their layout.
+``centerpoint_pillar_name_map`` and ``dynamic_centerpoint_name_map`` map
+the teachers: the pillar encoders, SECOND, SECONDFPN (whose transposed
+convs are flipped, see ``centerpoint_params_to_torch``) and the CenterHead.
 """
 from __future__ import annotations
 
@@ -170,6 +174,94 @@ def bevdepth4d_name_map(depth: int = 50) -> Tuple[NameMap, NameMap]:
     _bev_resnet_map(pm, sm, "pre_process_net.", ("pre_process_net",), [2])
     _center_head_map(pm, sm)
     return pm, sm
+
+
+def _second_map(pm: NameMap, sm: NameMap, layer_nums):
+    """SECOND ``blocks.{i}.{3j}`` (conv) / ``.{3j + 1}`` (BN) ->
+    ``stage{i}_conv{j}``."""
+    for i, n in enumerate(layer_nums):
+        for j in range(n + 1):
+            f = ("backbone", f"stage{i}_conv{j}")
+            pm[f"pts_backbone.blocks.{i}.{3 * j}.weight"] = f + ("conv",
+                                                                 "kernel")
+            pm.update(bn_name_map(f"pts_backbone.blocks.{i}.{3 * j + 1}",
+                                  f + ("norm",), sm))
+
+
+def _second_fpn_map(pm: NameMap, sm: NameMap, neck: dict) -> NameMap:
+    """SECONDFPN ``deblocks.{i}.0`` / ``.1`` -> ``deblock_{i}``; returns
+    the transposed convs' entries, which take another layout."""
+    transposed: NameMap = {}
+    for i, st in enumerate(neck["upsample_strides"]):
+        f = ("neck", f"deblock_{i}")
+        kernel = f + ("deconv" if st > 1 else "conv", "kernel")
+        if st > 1 or (st == 1 and not neck.get("use_conv_for_no_stride",
+                                               False)):
+            transposed[f"pts_neck.deblocks.{i}.0.weight"] = kernel
+        else:
+            pm[f"pts_neck.deblocks.{i}.0.weight"] = kernel
+        pm.update(bn_name_map(f"pts_neck.deblocks.{i}.1", f + ("norm",), sm))
+    return transposed
+
+
+def _lidar_teacher_map(cfg: dict, pfn) -> Tuple[NameMap, NameMap, NameMap]:
+    pm: NameMap = {}
+    sm: NameMap = {}
+    for i in range(len(cfg["pts_voxel_encoder"]["feat_channels"])):
+        pfn(pm, sm, i)
+    _second_map(pm, sm, cfg["pts_backbone"]["layer_nums"])
+    transposed = _second_fpn_map(pm, sm, cfg["pts_neck"])
+    head = cfg["pts_bbox_head"]
+    convs = {int(v[1]) for v in head["common_heads"].values()}
+    if convs != {2}:
+        raise ValueError(f"head conv counts {convs}: the map takes 2")
+    _center_head_map(pm, sm, num_tasks=len(head["tasks"]),
+                     keys=tuple(head["common_heads"]) + ("heatmap",))
+    return pm, sm, transposed
+
+
+def centerpoint_pillar_name_map(cfg: dict) -> Tuple[NameMap, NameMap,
+                                                    NameMap]:
+    """Reference ``CenterPoint`` (PillarFeatureNet) state_dict name ->
+    flax path for the model ``cfg``: (params map, batch_stats map, the
+    transposed convs' params map)."""
+    def pfn(pm, sm, i):
+        t, f = f"pts_voxel_encoder.pfn_layers.{i}", ("voxel_encoder",
+                                                    f"pfn_{i}")
+        pm[f"{t}.linear.weight"] = f + ("linear", "kernel")
+        pm.update(bn_name_map(f"{t}.norm", f + ("norm",), sm))
+    return _lidar_teacher_map(cfg, pfn)
+
+
+def dynamic_centerpoint_name_map(cfg: dict) -> Tuple[NameMap, NameMap,
+                                                     NameMap]:
+    """As ``centerpoint_pillar_name_map`` for ``DynamicCenterPoint`` and
+    MVP: ``pfn_layers.{i}.0`` / ``.1`` -> ``linear_{i}`` / ``norm_{i}``."""
+    def pfn(pm, sm, i):
+        t = f"pts_voxel_encoder.pfn_layers.{i}"
+        pm[f"{t}.0.weight"] = ("voxel_encoder", f"linear_{i}", "kernel")
+        pm.update(bn_name_map(f"{t}.1", ("voxel_encoder", f"norm_{i}"), sm))
+    return _lidar_teacher_map(cfg, pfn)
+
+
+def centerpoint_params_to_torch(flat: Mapping[str, np.ndarray], cfg: dict
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """Flattened JAX ``CenterPoint`` / ``DynamicCenterPoint`` variables of
+    the model ``cfg`` -> the port's state_dict.  A flax transposed conv
+    ``[kh, kw, in, out]`` applies its kernel unflipped, torch's is the
+    conv gradient: the kernel is flipped and becomes ``[in, out, kh,
+    kw]`` (a 1x1 flax conv standing for a 1x1 transposed conv too)."""
+    dynamic = cfg["pts_voxel_encoder"]["type"] == "DynamicPillarFeatureNet"
+    pm, sm, transposed = (dynamic_centerpoint_name_map if dynamic
+                          else centerpoint_pillar_name_map)(cfg)
+    sd = map_to_state_dict(flat, pm, sm)
+    for tname, path in transposed.items():
+        key = "/".join(("params",) + path)
+        if key not in flat:
+            raise KeyError(f"{key} (for {tname}) not in the JAX variables")
+        arr = np.asarray(flat[key], np.float32)[::-1, ::-1]
+        sd[tname] = torch.from_numpy(arr.transpose(2, 3, 0, 1).copy())
+    return sd
 
 
 def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:

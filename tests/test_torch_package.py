@@ -6,7 +6,8 @@
   import.
 * Its entry points default to the card (``device="cuda"``).
 * The JAX ``BEVDepth4D``'s and ``BEVFormer``'s variables load strictly
-  into the port; ``bevformer_r50_cfg()`` builds in both packages.
+  into the port; ``bevformer_r50_cfg()`` builds in both packages (the
+  teachers' are held in ``test_torch_centerpoint.py``).
 """
 import inspect
 import os
@@ -30,6 +31,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("ops.segmented", "ops.segmented_scan", "ops.scatter",
+             "ops.voxelize", "models.detectors.centerpoint"):
+    assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 bad = [m for m in sys.modules
        if m == "distillbev_tpu" or m.startswith("distillbev_tpu.")]
@@ -65,7 +69,8 @@ def test_entry_points_default_to_the_card():
     from distillbev_tpu_torch.apis.test import run_eval
     for fn in (flagship.build_flagship_student,
                flagship.make_example_batch, flagship.build_bevformer,
-               flagship.make_bevformer_example_batch, run_eval):
+               flagship.make_bevformer_example_batch, flagship.build_teacher,
+               flagship.make_points_example_batch, run_eval):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -77,6 +82,8 @@ def test_default_device_does_not_fall_back_to_the_cpu():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises((RuntimeError, AssertionError)):
         flagship.make_example_batch(1, img_hw=(32, 64))
+    with pytest.raises((RuntimeError, AssertionError)):
+        flagship.make_points_example_batch(1, 100)
     model, batch = flagship.build_flagship_student(tiny=True, device="cpu")
     with pytest.raises((RuntimeError, AssertionError)):
         run_eval(model, [{"img_inputs": batch,
