@@ -34,7 +34,24 @@ CUDA device, ``nvcc`` and nothing of JAX or the JAX package.  Phases:
    ``run_eval(family="points")`` over 3 requests per teacher
    (CenterPoint-pillar, DynamicCenterPoint) with launch counts set to 0
    just before and read just after; one more request per teacher under
-   ``torch.profiler``.
+   ``torch.profiler``;
+5. distill path, the flagship train step at full width (CenterPoint-
+   pillar teacher -> BEVDepth4D-R50 with FGD, AdamW 2e-4, weight decay
+   1e-2, clip at 5, the step policy), fp32, batch 1, seeded random
+   weights: ``gather_rows`` against its plain version at the splat
+   backward's shape (frame 0's cell ids of phase 2) and at the tool's,
+   bitwise; the tiny distill step's losses and gradients on the card
+   against the same weights on the CPU; 3 train steps with the launch
+   counts set to 0 just before and read just after (2
+   ``scatter_add_rows_batched`` a step, the two frames' splats, and 1
+   ``gather_rows``, frame 0's splat backward: frame 1 reaches the BEV
+   encoder detached); one more step under ``torch.profiler``;
+6. the microbench tool ``distillbev_tpu_torch.tools.bench_gather`` at
+   its defaults (4,194,304 rows, a 23,634-row table) with the launch
+   counts set to 0 just before and read just after, after
+   ``scatter_add_rows`` is held against its plain version at the tool's
+   shape (fp32, within 1e-5 of each row's sum of |upd|) and on a bf16
+   case (bitwise: both add in ascending row order, rounding every add).
 
 The scan kernel is first held against its plain version on edge cases
 right after the build, before any model is built.
@@ -61,12 +78,26 @@ FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 N_REQUESTS = 3
 N_TRAIN_STEPS = 3
 EXPAND_LAUNCHES_PER_STEP = 18   # 6 TSA + 6 SCA + 6 decoder backward calls
+# the distill step: the splat forward of both frames, the splat backward
+# of frame 0 only (frame 1 is detached before the BEV encoder)
+SPLAT_LAUNCHES_PER_DISTILL_STEP = 2
+GATHER_LAUNCHES_PER_DISTILL_STEP = 1
+TOOL_N, TOOL_S = 1 << 22, 23634   # bench_gather's default rows and table
+TOOL_ITERS = 5              # bench_gather's timed calls after one warm call
 # DynamicPillarFeatureNet's point mean (scatter_reduce 'mean' ->
 # segment_reduce_sorted): one scan of [N, 4], the three sums with the
 # count as a fourth column.  The pillar teacher's reductions are capped
 # windows (no scan), and its per-pillar max in the dynamic one a running
 # max.
 SCAN_LAUNCHES_PER_DYNAMIC_REQUEST = 1
+
+
+def bound_of(nbytes: float, ops: float):
+    """The least time (ms) for ``nbytes`` over the memory rate and ``ops``
+    fp32 operations over the peak rate, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -161,8 +192,7 @@ def check_scatter_rows(ids_main, size_main, width, gen):
     # least work: read every id, the update rows that are kept, write
     # the canvas once; one fp32 add per kept element
     nbytes = 4 * (b * r + n_valid * width + b * size_main * width)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, n_valid * width / FP32_FLOPS
-                   ) * 1e3
+    bound_ms, bound_by = bound_of(nbytes, n_valid * width)
     print(f"scatter_rows flagship: {n_valid}/{b * r} rows kept; "
           f"{ms:.4f} ms (sort + segment search {prep_ms:.4f} ms, segment "
           f"sum {sum_ms:.4f} ms; bound {bound_ms:.4f} ms, {nbytes} B), "
@@ -173,9 +203,8 @@ def check_scatter_rows(ids_main, size_main, width, gen):
                 source="distillbev_tpu_torch/csrc/scatter_rows.cu",
                 replaces="distillbev_tpu/ops/pallas_scatter.py:70",
                 launches=None, max_abs_err=errs["flagship"], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes"
-                if nbytes / HBM_BYTES_PER_S >= n_valid * width / FP32_FLOPS
-                else "operations", library_ms=library_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms,
                 edge_max_abs_err={k: v for k, v in errs.items()
                                   if k != "flagship"},
                 prep_ms=prep_ms, segment_sum_ms=sum_ms)
@@ -343,9 +372,8 @@ def expand_bound(ids_sq, w, g, size):
     nbytes = 4 * (ids_sq.numel() + 4 * n_kept + n_queries * c +
                   groups * size * width)
     ops = 2 * n_kept * width
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return dict(bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes"
-                if t_bytes >= t_ops else "operations", bytes=nbytes,
+    bound_ms, bound_by = bound_of(nbytes, ops)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                 ops=ops, kept_samples=n_kept)
 
 
@@ -785,8 +813,7 @@ def scan_shape_report(name, values, keys):
     # least work: read the values and keys once, write the fp32 output
     # once; one fp32 add per value
     nbytes = n * c * values.element_size() + 4 * n + 4 * n * c
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n * c / FP32_FLOPS
-    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_ms, bound_by = bound_of(nbytes, n * c)
     print(f"scan {name}: {ms:.4f} ms a call (device time of its passes "
           f"{device_ms}; bound {bound_ms:.4f} ms, {nbytes} B), plain "
           f"{plain_ms:.4f} ms, index_add_ of the segment sums "
@@ -794,8 +821,7 @@ def scan_shape_report(name, values, keys):
           flush=True)
     return dict(rows=n, channels=c, dtype=str(values.dtype)[6:], ms=ms,
                 device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes"
-                if t_bytes >= t_ops else "operations", bytes=nbytes,
+                bound_by=bound_by, bytes=nbytes,
                 index_add_segment_sums_ms=index_add_ms, max_abs_err=err,
                 longest_segment=longest)
 
@@ -966,6 +992,300 @@ def teacher_path(ids_main, size_main, nx, seed, gen, counters):
                                 bev_pool=bev_pool_times, clouds=data)
 
 
+def check_gather_rows(ids_main, size_main, width, gen):
+    """gather_rows vs its plain version on the card, bitwise: at the
+    splat backward's shape (the cotangent [size, C] fp32 gathered by
+    frame 0's cell ids, dropped rows past the table), at the tool's shape
+    and on edge cases; times, bound and the ``index_select`` yardstick at
+    the two real shapes."""
+    import torch
+    from distillbev_tpu_torch.ops import gather_rows, gather_rows_plain
+    from distillbev_tpu_torch.tools.bench_gather import gather_bytes
+
+    dev = ids_main.device
+    s_tool, n_tool = TOOL_S, TOOL_N
+    cases = {
+        "splat_backward": (torch.randn(size_main, width, generator=gen,
+                                       device=dev), ids_main[0].contiguous()),
+        "tool": (torch.randn(s_tool, 128, generator=gen, device=dev).to(
+            torch.bfloat16), torch.randint(0, s_tool, (n_tool,),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32)),
+        "bf16_W3": (torch.randn(1000, 3, generator=gen, device=dev).to(
+            torch.bfloat16), torch.randint(-5, 1005, (70001,), generator=gen,
+                                           device=dev, dtype=torch.int32)),
+        "fp32_W5": (torch.randn(1000, 5, generator=gen, device=dev),
+                    torch.randint(-5, 1005, (70001,), generator=gen,
+                                  device=dev, dtype=torch.int32)),
+        "no_rows": (torch.randn(10, 64, generator=gen, device=dev),
+                    torch.empty(0, dtype=torch.int32, device=dev)),
+    }
+    shapes = {}
+    for name, (table, idx) in cases.items():
+        out = gather_rows(table, idx)
+        again = gather_rows(table, idx)
+        plain = gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again) and torch.equal(out, plain)):
+            raise AssertionError(f"gather_rows {name}: not bitwise equal")
+        print(f"gather_rows {name}: table {tuple(table.shape)} "
+              f"{str(table.dtype)[6:]}, {idx.shape[0]} rows, bitwise equal",
+              flush=True)
+        if name not in ("splat_backward", "tool"):
+            continue
+        s, w = table.shape
+        n = idx.shape[0]
+        ms = cuda_time_ms(lambda: gather_rows(table, idx))
+        plain_ms = cuda_time_ms(lambda: gather_rows_plain(table, idx))
+        padded = torch.cat([table, table.new_zeros(1, w)])
+        lib_idx = torch.where((idx >= 0) & (idx < s), idx,
+                              torch.full_like(idx, s))
+        library_ms = cuda_time_ms(lambda: torch.index_select(padded, 0,
+                                                             lib_idx))
+        # a copy does no arithmetic
+        nbytes = gather_bytes(n, s, w, table.element_size())
+        bound_ms, bound_by = bound_of(nbytes, 0)
+        shapes[name] = dict(rows=n, table=[s, w],
+                            dtype=str(table.dtype)[6:], ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            bytes=nbytes, max_abs_err=0.0)
+        print(f"gather_rows {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+              f"{nbytes} B), plain {plain_ms:.4f} ms, index_select "
+              f"{library_ms:.4f} ms", flush=True)
+    return shapes
+
+
+def check_scatter_add_rows(gen):
+    """scatter_add_rows vs its plain version on the card at the tool's
+    shape (fp32: within 1e-5 of each row's sum of |upd|) and on a bf16
+    case (bitwise) and ids outside [0, size); times, bound and the
+    ``index_add_`` yardstick at the tool's shape."""
+    import torch
+    from distillbev_tpu_torch.ops import scatter_rows as sr
+    from distillbev_tpu_torch.tools.bench_gather import scatter_bytes
+
+    dev = gen.device
+    s, n = TOOL_S, TOOL_N
+    idx = torch.randint(0, s, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rows = torch.randn(n, 128, generator=gen, device=dev)
+    out = sr.scatter_add_rows(idx, rows, s)
+    again = sr.scatter_add_rows(idx, rows, s)
+    plain = sr.scatter_add_rows_plain(idx, rows, s)
+    mag = sr.scatter_add_rows_plain(idx, rows.abs(), s)
+    torch.cuda.synchronize()
+    err = (out - plain).abs()
+    if not torch.equal(out, again) or not bool(
+            (err <= 1e-5 * mag + 1e-6).all()):
+        raise AssertionError("scatter_add_rows tool: differs beyond 1e-5 "
+                             "of the row magnitude or between launches")
+    errs = {"tool": float(err.max())}
+    n16 = n // 4
+    r16, i16 = rows[:n16].to(torch.bfloat16), idx[:n16].contiguous()
+    out16 = sr.scatter_add_rows(i16, r16, s)
+    if out16.dtype != torch.bfloat16 or not torch.equal(
+            out16, sr.scatter_add_rows_plain(i16, r16, s)):
+        raise AssertionError("scatter_add_rows bf16: not bitwise equal")
+    errs["bf16"] = 0.0
+    wild = torch.randint(-50, 2050, (300_000,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    upd = torch.randn(300_000, 40, generator=gen, device=dev)
+    got = sr.scatter_add_rows(wild, upd, 2000)
+    ref = sr.scatter_add_rows_plain(wild, upd, 2000)
+    big = sr.scatter_add_rows_plain(wild, upd.abs(), 2000)
+    if not bool(((got - ref).abs() <= 1e-5 * big + 1e-6).all()):
+        raise AssertionError("scatter_add_rows dropped ids: differs")
+    errs["dropped_ids"] = float((got - ref).abs().max())
+    for name, e in errs.items():
+        print(f"scatter_add_rows {name}: max_abs_err {e:.3e}", flush=True)
+    ms = cuda_time_ms(lambda: sr.scatter_add_rows(idx, rows, s), iters=10)
+    plain_ms = cuda_time_ms(lambda: sr.scatter_add_rows_plain(idx, rows, s),
+                            iters=10)
+    buf = torch.zeros(s, 128, device=dev)
+    library_ms = cuda_time_ms(lambda: buf.index_add_(0, idx, rows), iters=10)
+    bf16_ms = cuda_time_ms(lambda: sr.scatter_add_rows(i16, r16, s),
+                           iters=10)
+    order, seg_start = sr.segment_order(idx[None], s)
+    prep_ms = cuda_time_ms(lambda: sr.segment_order(idx[None], s))
+    sum_ms = cuda_time_ms(lambda: sr.segment_sum(rows[None], order,
+                                                 seg_start, s))
+    # one fp32 add per element
+    nbytes = scatter_bytes(n, s)
+    bound_ms, bound_by = bound_of(nbytes, n * 128)
+    print(f"scatter_add_rows tool: [{n}, 128] fp32 -> [{s}, 128]; {ms:.4f} ms"
+          f" (sort + segment search {prep_ms:.4f} ms, segment sum "
+          f"{sum_ms:.4f} ms; bound {bound_ms:.4f} ms, {nbytes} B), plain "
+          f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; bf16 "
+          f"[{n16}, 128] {bf16_ms:.4f} ms", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                prep_ms=prep_ms, segment_sum_ms=sum_ms, bf16_ms=bf16_ms,
+                max_abs_err=max(errs.values()), edge_max_abs_err=errs)
+
+
+# gradients held card vs CPU: downstream of the BEV encoder (fp32 noise
+# near 1e-4) and upstream of it (training-mode BatchNorm over the tiny
+# maps puts the fp32 noise near 1% of the norm)
+TINY_DISTILL_GRADS = {
+    "distiller.channel_wise_adaptations.0.conv.weight": 1e-2,
+    "pts_bbox_head.task_heads.3.heatmap.1.weight": 1e-2,
+    "img_bev_encoder_neck.up2.4.weight": 1e-2,
+    "img_bev_encoder_backbone.layers.2.1.conv2.weight": 5e-2,
+    "img_view_transformer.depthnet.weight": 5e-2,
+    "img_backbone.conv1.weight": 5e-2,
+}
+
+
+class GradProbe:
+    """The optimizer interface of ``make_distill_train_step`` that keeps
+    the gradients and updates nothing."""
+
+    def __init__(self, model):
+        self.model, self.grads = model, {}
+
+    def zero_grad(self):
+        self.model.zero_grad(set_to_none=True)
+
+    def step(self, step):
+        named = dict(self.model.named_parameters())
+        self.grads = {n: named[n].grad.detach().cpu()
+                      for n in TINY_DISTILL_GRADS}
+        return named[next(iter(named))].grad.new_zeros(())
+
+
+def to_device(batch, device):
+    """A DistillBatch (with its ImgInputs) on ``device``."""
+    img = type(batch.img_inputs)(*[None if a is None else a.to(device)
+                                   for a in batch.img_inputs])
+    return type(batch)(img, *[a.to(device) for a in batch[1:]])
+
+
+def check_tiny_distill_against_cpu(seed: int):
+    """The tiny distill step's losses and gradients on the card against
+    the same weights on the CPU (whose path the CPU tests hold against
+    the JAX package)."""
+    import copy
+    import torch
+    from distillbev_tpu_torch.apis.flagship import build_flagship
+    from distillbev_tpu_torch.training import make_distill_train_step
+
+    cpu_student, cpu_teacher, cpu_batch = build_flagship(tiny=True,
+                                                         seed=seed,
+                                                         device="cpu")
+    gpu_student = copy.deepcopy(cpu_student).cuda()
+    gpu_teacher = copy.deepcopy(cpu_teacher).cuda()
+    results = []
+    for student, teacher, batch in (
+            (cpu_student, cpu_teacher, cpu_batch),
+            (gpu_student, gpu_teacher, to_device(cpu_batch, "cuda"))):
+        probe = GradProbe(student)
+        metrics = make_distill_train_step(student, teacher, probe)(batch, 0)
+        results.append(({k: float(v) for k, v in metrics.items()
+                         if k != "grad_norm"}, probe.grads))
+    (ref, ref_g), (got, got_g) = results
+    worst_loss = max(abs(got[k] - v) / max(abs(v), 1e-6)
+                     for k, v in ref.items())
+    if set(got) != set(ref) or worst_loss > 1e-3:
+        raise AssertionError(f"tiny distill losses: rel err {worst_loss}")
+    grad_err = {n: float((got_g[n] - ref_g[n]).norm() / ref_g[n].norm())
+                for n in TINY_DISTILL_GRADS}
+    bad = {n: e for n, e in grad_err.items() if e > TINY_DISTILL_GRADS[n]}
+    if bad:
+        raise AssertionError(f"tiny distill grads: {bad}")
+    print(f"tiny distill step cuda vs cpu: {len(ref)} losses, max rel err "
+          f"{worst_loss:.3e}; grads (norm-relative) {grad_err}", flush=True)
+    return dict(loss_max_rel_err=worst_loss, grad_norm_rel_err=grad_err)
+
+
+def train_distill(student, teacher, batch, counters):
+    """N_TRAIN_STEPS of the flagship distill step with the bench's
+    optimizer; launch counts set to 0 just before and read just after.
+    Returns the per-step metrics, wall times, peak memory, launches and
+    the profile of one more step."""
+    import torch
+    from distillbev_tpu_torch.training import make_distill_train_step
+    from distillbev_tpu_torch.training.optim import build_optimizer
+    from distillbev_tpu_torch.training.schedules import build_lr_schedule
+
+    lr = build_lr_schedule(dict(policy="step", step=[16, 22]), 2e-4,
+                           total_steps=10000, steps_per_epoch=1000)
+    opt = build_optimizer(dict(type="AdamW", lr=2e-4, weight_decay=1e-2),
+                          lr, student, grad_clip=dict(max_norm=5))
+    step_fn = make_distill_train_step(student, teacher, opt)
+    walls, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    for step in range(N_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step_fn(batch, step)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+        print(f"distill step {step}: {walls[-1]:.1f} ms, total_loss "
+              f"{metrics[-1]['total_loss']:.4f}, grad_norm "
+              f"{metrics[-1]['grad_norm']:.4f}", flush=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    prof = profiled(lambda: step_fn(batch, N_TRAIN_STEPS))
+    bad = [(i, k) for i, m in enumerate(metrics) for k, v in m.items()
+           if not np.isfinite(v)]
+    if bad or any(len(m) != 19 for m in metrics):
+        raise AssertionError(f"distill metrics: non-finite {bad} or "
+                             f"{[len(m) for m in metrics]} keys")
+    return dict(metrics=metrics, step_ms=walls, peak_mem_bytes=peak,
+                launches=launches, profile=prof)
+
+
+def distill_path(ids_main, size_main, seed, gen, counters):
+    """Phase 5: the row gather at its real shapes, the tiny distill step
+    card vs CPU, then the full-width flagship distill steps."""
+    import torch
+    from distillbev_tpu_torch.apis.flagship import build_flagship
+
+    gather_shapes = check_gather_rows(ids_main, size_main, 64, gen)
+    torch.cuda.empty_cache()
+    tiny = check_tiny_distill_against_cpu(seed)
+    t0 = time.perf_counter()
+    student, teacher, batch = build_flagship(seed=seed, device="cuda")
+    n_params = sum(p.numel() for p in student.parameters())
+    print(f"flagship distill: student {n_params} parameters, teacher "
+          f"{sum(p.numel() for p in teacher.parameters())}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    train = train_distill(student, teacher, batch, counters)
+    want = {name: 0 for name in counters}
+    want["scatter_add_rows_batched"] = \
+        SPLAT_LAUNCHES_PER_DISTILL_STEP * N_TRAIN_STEPS
+    want["gather_rows"] = GATHER_LAUNCHES_PER_DISTILL_STEP * N_TRAIN_STEPS
+    if train["launches"] != want:
+        raise AssertionError(f"distill launches {train['launches']}, "
+                             f"expected {want}")
+    del student, teacher, batch
+    torch.cuda.empty_cache()
+    return gather_shapes, tiny, train
+
+
+def tool_path(counters):
+    """Phase 6: the microbench tool at its defaults, with the launch
+    counts set to 0 just before and read just after."""
+    import torch
+    from distillbev_tpu_torch.tools import bench_gather
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    rows = bench_gather.main(TOOL_N, TOOL_S, iters=TOOL_ITERS)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 0 for name in counters}
+    want["gather_rows"] = want["scatter_add_rows"] = TOOL_ITERS + 1
+    if launches != want:
+        raise AssertionError(f"tool launches {launches}, expected {want}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -974,7 +1294,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from distillbev_tpu_torch.apis.flagship import (build_bevformer,
                                                     build_flagship_student)
-    from distillbev_tpu_torch.ops import cuda_build
+    from distillbev_tpu_torch.ops import cuda_build, gather_rows
     from distillbev_tpu_torch.ops import scatter_rows as sr
     from distillbev_tpu_torch.ops import segmented_scan as ss
 
@@ -1036,7 +1356,9 @@ def main() -> int:
                                   gen)]
     counters = {"scatter_add_rows_batched": sr.scatter_add_rows_batched,
                 "scatter_add_rows_expand": sr.scatter_add_rows_expand,
-                "segmented_cumsum_rows": ss.segmented_cumsum_rows}
+                "segmented_cumsum_rows": ss.segmented_cumsum_rows,
+                "scatter_add_rows": sr.scatter_add_rows,
+                "gather_rows": gather_rows}
     tiny_err = check_tiny_against_cpu(seed)
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -1044,9 +1366,8 @@ def main() -> int:
     latencies = serve(model, seed)
     serve_peak = torch.cuda.max_memory_allocated()
     serve_launches = {name: fn.launches for name, fn in counters.items()}
-    if serve_launches != {"scatter_add_rows_batched": 2 * N_REQUESTS,
-                          "scatter_add_rows_expand": 0,
-                          "segmented_cumsum_rows": 0}:
+    if serve_launches != {**{name: 0 for name in counters},
+                          "scatter_add_rows_batched": 2 * N_REQUESTS}:
         raise AssertionError(f"serve launches {serve_launches}, expected "
                              f"{2 * N_REQUESTS} splats")
     kernels[0]["launches"] = serve_launches["scatter_add_rows_batched"]
@@ -1066,9 +1387,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tiny_bf_err = check_tiny_bevformer_against_cpu(seed)
     train = train_bevformer(model, batch, seed, counters)
-    want = {"scatter_add_rows_batched": 0,
+    want = {**{name: 0 for name in counters},
             "scatter_add_rows_expand": EXPAND_LAUNCHES_PER_STEP *
-            N_TRAIN_STEPS, "segmented_cumsum_rows": 0}
+            N_TRAIN_STEPS}
     if train["launches"] != want:
         raise AssertionError(f"train launches {train['launches']}, "
                              f"expected {want}")
@@ -1094,6 +1415,40 @@ def main() -> int:
         "shapes", timed_shape="vfe_mean", shapes=scan_shapes,
         edge_max_abs_err=scan_edge_errs))
 
+    # phase 5: distill path -- the row gather, then the flagship step
+    gather_shapes, tiny_distill, distill = distill_path(
+        ids_main, size_main, seed, gen, counters)
+    kernels[0]["launches_distill"] = \
+        distill["launches"]["scatter_add_rows_batched"]
+    gather_main = gather_shapes["splat_backward"]
+    gather_kernel = dict(
+        name="gather_rows", route="cuda",
+        source="distillbev_tpu_torch/csrc/gather_rows.cu",
+        replaces="tools/analysis_tools/bench_pallas_gather.py:44",
+        launches=distill["launches"]["gather_rows"],
+        max_abs_err=gather_main["max_abs_err"], ms=gather_main["ms"],
+        plain_ms=gather_main["plain_ms"], bound_ms=gather_main["bound_ms"],
+        bound_by=gather_main["bound_by"],
+        library_ms=gather_main["library_ms"],
+        timed_shape="splat_backward", shapes=gather_shapes)
+    kernels.append(gather_kernel)
+
+    # phase 6: the microbench tool -- the ordered scatter, then the tool
+    scatter = check_scatter_add_rows(gen)
+    tool = tool_path(counters)
+    for replaces in ("distillbev_tpu/ops/pallas_scatter.py:220",
+                     "tools/analysis_tools/bench_pallas_gather.py:78"):
+        kernels.append(dict(
+            name="scatter_add_rows", route="cuda",
+            source="distillbev_tpu_torch/csrc/scatter_rows.cu",
+            replaces=replaces,
+            launches=tool["launches"]["scatter_add_rows"],
+            max_abs_err=scatter["max_abs_err"], ms=scatter["ms"],
+            plain_ms=scatter["plain_ms"], bound_ms=scatter["bound_ms"],
+            bound_by=scatter["bound_by"], library_ms=scatter["library_ms"],
+            timed_shape="tool fp32", detail=scatter))
+    gather_kernel["launches_tool"] = tool["launches"]["gather_rows"]
+
     print(json.dumps({"profile": serve_prof}), flush=True)
     print(json.dumps({"serve": {
         "model": "BEVDepth4D-R50 flagship, fp32, batch 1",
@@ -1113,6 +1468,14 @@ def main() -> int:
         "model": "CenterPoint-pillar and DynamicCenterPoint, 300,000 "
                  "points, 512x512 pillars, fp32, batch 1",
         "requests": N_REQUESTS, **teacher, **teacher_info}}), flush=True)
+    print(json.dumps({"distill_profile": distill.pop("profile")}),
+          flush=True)
+    print(json.dumps({"distill": {
+        "model": "CenterPoint-pillar -> BEVDepth4D-R50 FGD, 6 x 2 x "
+                 "256x704, 300,000 points, fp32, batch 1",
+        "steps": N_TRAIN_STEPS, **distill, "tiny_cuda_vs_cpu": tiny_distill}}),
+        flush=True)
+    print(json.dumps({"tool": tool}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

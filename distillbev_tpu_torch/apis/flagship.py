@@ -7,6 +7,10 @@ the camera part of ``make_example_batch`` as torch tensors, and
 ``build_flagship``: a ``BEVDepth4D`` built from the distill cfg's model
 block with a seeded random init.
 
+The flagship distill setup: ``build_flagship`` (the ``BEVDepth4DDistill``
+student with its FGD distiller, the frozen CenterPoint-pillar teacher and
+one ``DistillBatch``).
+
 The LiDAR teachers: ``dynamic_centerpoint_teacher_cfg``,
 ``sort_points_by_pillar``, ``make_points_example_batch`` (the points,
 point mask and GT of ``make_example_batch``, drawn as JAX draws them) and
@@ -432,6 +436,47 @@ def build_teacher(kind: str = "pillar", tiny: bool = False, seed: int = 0,
     model = build_detector(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval(), batch
+
+
+def build_flagship(tiny: bool = False, seed: int = 0,
+                   device: str = "cuda"):
+    """Build ``(student, teacher, batch)``, the counterpart of the JAX
+    ``build_flagship`` at batch 1: the training-mode ``BEVDepth4DDistill``
+    of ``bevdepth4d_distill_cfg`` with its FGD distiller, the eval-mode
+    CenterPoint-pillar teacher of ``centerpoint_teacher_cfg`` (both
+    randomly initialised from ``seed`` with the JAX package's init rules)
+    and one ``DistillBatch``: the camera inputs of ``make_example_batch``
+    and the points and GT of ``make_points_example_batch``, one seed in
+    the JAX draw order.
+
+    tiny=True is the JAX tiny recipe: R18, 64x176 images, every grid
+    coarsened by 4 (teacher 128x128 pillars, student BEV 32x32, 15 depth
+    bins), 512 voxels and 2,048 points.
+    """
+    from ..models import build_detector
+    from ..models.layers import init_weights
+    from ..training.train_step import DistillBatch
+
+    t_cfg = centerpoint_teacher_cfg()
+    if tiny:
+        vs = _shrink_teacher_grid(t_cfg)
+        s_cfg = bevdepth4d_distill_cfg(18)
+        _shrink_student_grids(s_cfg)
+        hw, n_points = (64, 176), 2048
+        s_cfg["img_view_transformer"]["data_config"] = {"input_size": hw}
+        s_cfg["img_neck"]["in_channels"] = [256, 512]
+    else:
+        vs, hw, n_points = None, DATA_CONFIG["input_size"], MAX_POINTS
+        s_cfg = bevdepth4d_distill_cfg(50)
+    student = build_detector(s_cfg)
+    init_weights(student, torch.Generator().manual_seed(seed))
+    teacher = build_detector(t_cfg)
+    init_weights(teacher, torch.Generator().manual_seed(seed + 1))
+    cams = make_example_batch(1, img_hw=hw, seed=seed, device=device)
+    pts = make_points_example_batch(1, n_points, img_hw=hw, seed=seed,
+                                    voxel_size=vs, device=device)
+    return (student.to(device).train(), teacher.to(device).eval(),
+            DistillBatch(cams, *pts))
 
 
 BEVFORMER_CLASSES = 10

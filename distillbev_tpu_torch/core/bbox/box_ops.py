@@ -1,9 +1,10 @@
-"""Rotated BEV IoU by Sutherland-Hodgman polygon clipping, plain torch.
+"""Rotated BEV box operations, plain torch.
 
 Counterpart of the rotated-IoU part of
-``distillbev_tpu/core/bbox/box_jax_ops.py``: box A's corners are clipped
+``distillbev_tpu/core/bbox/box_jax_ops.py`` (box A's corners are clipped
 by the four edges of box B with a fixed budget of 8 vertices per
-polygon, all pairs at once, so the shapes are static.
+polygon, all pairs at once, so the shapes are static) and of its
+``points_in_rbbox_bev`` (:48), the distillation masks' point-in-box test.
 """
 from __future__ import annotations
 
@@ -103,3 +104,24 @@ def rotated_iou_bev(boxes_a: torch.Tensor,
     union = area_a[:, None] + area_b[None, :] - inter
     return torch.where(union > 1e-8, inter / union.clamp_min(1e-8),
                        torch.zeros_like(inter))
+
+
+def points_in_rbbox_bev(points_xy: torch.Tensor,
+                        boxes: torch.Tensor) -> torch.Tensor:
+    """BEV membership ``[..., N, 2]`` points vs ``[..., M, 5|7+]`` rotated
+    boxes (x, y, dx, dy, yaw or x, y, z, dx, dy, dz, yaw; z ignored) ->
+    bool ``[..., N, M]``, as ``box_jax_ops.py:points_in_rbbox_bev``.  A
+    box with a non-positive extent contains nothing."""
+    if boxes.shape[-1] >= 7:
+        ctr, dims, yaw = boxes[..., :2], boxes[..., 3:5], boxes[..., 6]
+    else:
+        ctr, dims, yaw = boxes[..., :2], boxes[..., 2:4], boxes[..., 4]
+    rel = points_xy[..., :, None, :] - ctr[..., None, :, :]
+    c = torch.cos(yaw)[..., None, :]
+    s = torch.sin(yaw)[..., None, :]
+    lx = rel[..., 0] * c + rel[..., 1] * s
+    ly = -rel[..., 0] * s + rel[..., 1] * c
+    valid = (dims > 0).all(dim=-1)[..., None, :]
+    inside = (lx.abs() <= dims[..., None, :, 0] / 2) & \
+        (ly.abs() <= dims[..., None, :, 1] / 2)
+    return inside & valid

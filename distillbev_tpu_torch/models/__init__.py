@@ -10,6 +10,7 @@ from .necks import fpn  # noqa: F401
 from .necks import view_transformer  # noqa: F401
 from .dense_heads import centerpoint_head  # noqa: F401
 from .detectors import bevdet  # noqa: F401
+from .detectors import bevdet_distill  # noqa: F401
 from .transformer import attention as _attn  # noqa: F401
 from .transformer import encoder as _enc  # noqa: F401
 from .transformer import decoder as _dec  # noqa: F401

@@ -8,11 +8,11 @@ block of each stage has a bare 3x3 conv shortcut.
 
 Training knobs of ``ResNet``: ``frozen_stages=k`` takes the stem and
 ``layer1..layer k`` out of the gradient (``requires_grad=False``, as
-mmdet), and a ``norm_cfg`` with ``requires_grad=False`` freezes every
-BatchNorm affine.  BatchNorm always normalises with its running
-statistics, which is ``norm_eval=True``: the only setting this port
-trains with so far.  ``with_cp`` and ``pretrained`` are accepted and
-change no number.
+mmdet), a ``norm_cfg`` with ``requires_grad=False`` freezes every
+BatchNorm affine, and ``norm_eval=True`` keeps every BatchNorm of the
+backbone in eval mode (running statistics) when the model trains, as
+mmdet's ``ResNet.train``.  ``with_cp`` and ``pretrained`` are accepted
+and change no number.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..builder import BACKBONES
-from ..layers import BasicBlock, Bottleneck, make_norm
+from ..layers import BasicBlock, BatchNorm, Bottleneck, make_norm
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -75,6 +75,16 @@ class ResNet(nn.Module):
             self.bn1.requires_grad_(False)
             for i in range(1, frozen_stages + 1):
                 getattr(self, f"layer{i}").requires_grad_(False)
+        self.norm_eval = norm_eval
+        self.train(self.training)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, BatchNorm):
+                    m.eval()
+        return self
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x)))

@@ -1,11 +1,13 @@
-"""CenterPoint multi-task head: forward and decode (serving).
+"""CenterPoint multi-task head: forward, targets, loss and decode.
 
 Counterpart of ``distillbev_tpu/models/dense_heads/centerpoint_head.py``
-(``SeparateHead``, ``CenterHead.__call__`` and ``get_bboxes``).
-Submodules are named as the reference state_dict: ``shared_conv`` and
-``task_heads.{t}.{name}.{j}``.  Convolutions run NCHW; the predictions
-are returned as the JAX layout, per-task dicts of channels-last maps.
-Targets and losses come with the training slice.
+(``SeparateHead``, ``CenterHead.__call__``, ``get_targets``, ``loss`` and
+``get_bboxes``).  Submodules are named as the reference state_dict:
+``shared_conv`` and ``task_heads.{t}.{name}.{j}``.  Convolutions run
+NCHW; the predictions are returned as the JAX layout, per-task dicts of
+channels-last maps.  Targets are made on the device from the padded GT
+arrays (static shapes: dense gaussians, regression targets at the
+integer centres).
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
-from ..builder import HEADS
+from ..builder import HEADS, build_loss
 from ..layers import ConvModule
+from ..losses import clip_sigmoid
+from ...core import gaussian
 from ...core.bbox.coders import CODERS, DecodedBoxes
 from ...core.post_processing import circle_nms_mask, rotated_nms_mask
 from ...registry import build_from_cfg
@@ -67,7 +71,11 @@ class CenterHead(nn.Module):
         self.tasks = [dict(t) for t in tasks]
         self.norm_bbox = norm_bbox
         self.bbox_coder = dict(bbox_coder)
+        self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
+        self.loss_cls_cfg = dict(loss_cls or {})
+        self.loss_bbox_cfg = dict(loss_bbox or {})
+        self.loss_prefix = loss_prefix
         self.task_class_offsets = []
         acc = 0
         for t in self.tasks:
@@ -94,6 +102,92 @@ class CenterHead(nn.Module):
     def forward(self, x) -> List[Dict[str, torch.Tensor]]:
         x = self.shared_conv(x)
         return [head(x) for head in self.task_heads]
+
+    def get_targets(self, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                    gt_mask: torch.Tensor):
+        """Per-task training targets from padded GT.
+
+        Args:
+            gt_boxes: ``[B, M, 9]`` gravity-centred (x, y, z, dx, dy, dz,
+                yaw, vx, vy).
+            gt_labels: ``[B, M]`` global class ids.
+            gt_mask: ``[B, M]`` bool.
+
+        Returns (heatmaps, anno_boxes, inds, masks), lists over tasks:
+        ``[B, K_t, H, W]``, ``[B, M, 10]``, ``[B, M]`` int64 and
+        ``[B, M]`` bool.
+        """
+        tc = self.train_cfg
+        osf = tc["out_size_factor"]
+        vx, vy = tc["voxel_size"][0], tc["voxel_size"][1]
+        pc_range = tc["point_cloud_range"]
+        w = tc["grid_size"][0] // osf
+        h = tc["grid_size"][1] // osf
+        cx = (gt_boxes[..., 0] - pc_range[0]) / vx / osf
+        cy = (gt_boxes[..., 1] - pc_range[1]) / vy / osf
+        radius = gaussian.gaussian_radius(gt_boxes[..., 4] / vy / osf,
+                                          gt_boxes[..., 3] / vx / osf,
+                                          tc["gaussian_overlap"])
+        radius = torch.clamp(radius, min=float(tc["min_radius"]))
+        cxi = torch.floor(cx).to(torch.int32)
+        cyi = torch.floor(cy).to(torch.int32)
+        in_grid = (cxi >= 0) & (cxi < w) & (cyi >= 0) & (cyi < h)
+        centers = torch.stack([cx, cy], -1)
+        dims = gt_boxes[..., 3:6]
+        if self.norm_bbox:
+            dims = torch.log(torch.clamp(dims, min=1e-6))
+        anno = torch.cat([(cx - cxi.to(cx.dtype))[..., None],
+                          (cy - cyi.to(cy.dtype))[..., None],
+                          gt_boxes[..., 2:3], dims,
+                          torch.sin(gt_boxes[..., 6:7]),
+                          torch.cos(gt_boxes[..., 6:7]),
+                          gt_boxes[..., 7:9]], dim=-1)
+        heatmaps, anno_boxes, inds, masks = [], [], [], []
+        for off, task in zip(self.task_class_offsets, self.tasks):
+            k_t = task["num_class"]
+            ok = gt_mask & (gt_labels >= off) & (gt_labels < off + k_t) & \
+                in_grid
+            local_cls = torch.clamp(gt_labels - off, 0, k_t - 1)
+            heatmaps.append(gaussian.gaussian_heatmap_dense(
+                centers, radius, local_cls, ok, k_t, h, w))
+            inds.append(torch.where(ok, cyi * w + cxi,
+                                    torch.zeros_like(cxi)).long())
+            anno_boxes.append(torch.where(ok[..., None], anno,
+                                          torch.zeros_like(anno)))
+            masks.append(ok)
+        return heatmaps, anno_boxes, inds, masks
+
+    def loss(self, preds: List[Dict[str, torch.Tensor]],
+             gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+             gt_mask: torch.Tensor):
+        """Gaussian focal loss on each task's heatmap + code-weighted L1 on
+        the regression maps gathered at the GT centres."""
+        heatmaps, anno_boxes, inds, masks = self.get_targets(
+            gt_boxes, gt_labels, gt_mask)
+        loss_cls = build_loss(self.loss_cls_cfg)
+        loss_bbox = build_loss(self.loss_bbox_cfg)
+        code_weights = gt_boxes.new_tensor(self.train_cfg["code_weights"])
+        losses = {}
+        for tid, pred in enumerate(preds):
+            hm_tgt = heatmaps[tid].permute(0, 2, 3, 1)
+            num_pos = (hm_tgt == 1.0).sum()
+            losses[f"{self.loss_prefix}task{tid}.loss_heatmap"] = loss_cls(
+                clip_sigmoid(pred["heatmap"]), hm_tgt,
+                avg_factor=torch.clamp(num_pos, min=1))
+            parts = [pred["reg"], pred["height"], pred["dim"], pred["rot"]]
+            if "vel" in pred:
+                parts.append(pred["vel"])
+            anno_pred = torch.cat(parts, dim=-1)           # [B, H, W, 10]
+            bsz, hh, ww, cc = anno_pred.shape
+            gathered = torch.gather(
+                anno_pred.reshape(bsz, hh * ww, cc), 1,
+                inds[tid][..., None].expand(-1, -1, cc))   # [B, M, 10]
+            weights = masks[tid][..., None].to(torch.float32) * code_weights
+            num = torch.clamp(masks[tid].sum(), min=1).to(torch.float32)
+            losses[f"{self.loss_prefix}task{tid}.loss_bbox"] = loss_bbox(
+                gathered, anno_boxes[tid], weights,
+                avg_factor=num + 1e-4)
+        return losses
 
     def get_bboxes(self, preds: List[Dict[str, torch.Tensor]]
                    ) -> DecodedBoxes:

@@ -1,9 +1,17 @@
-"""BEVDepth4D: the two-frame camera student, serving forward.
+"""BEVDepth4D: the two-frame camera student, forward and losses.
 
 Counterpart of ``distillbev_tpu/models/detectors/bevdet.py``
-(``ImgInputs``, ``BEVDepth4D``, ``shift_feature``).  The inputs keep the
-JAX layout (images ``[B, F*N, H, W, 3]``) and so do the head maps; the
-image encoder, view transformer and BEV encoder run NCHW in between.
+(``ImgInputs``, ``BEVDepth4D``, ``shift_feature``, ``head_loss``,
+``depth_loss``).  The inputs keep the JAX layout (images ``[B, F*N, H,
+W, 3]``) and so do the head maps; the image encoder, view transformer and
+BEV encoder run NCHW in between.  ``.train()`` switches every BatchNorm
+to batch statistics; their running statistics then update in the JAX
+order (image encoder and view transformer of frame 0, then of frame 1,
+pre_process of frame 0 and of frame 1, the BEV encoder), so a module
+shared by the two frames updates twice a call.  With ``detach`` frame 1
+reaches the BEV encoder detached, so it runs without an autograd graph
+(the JAX step prunes its backward at trace time): its splat launches no
+backward gather.
 Submodules are named as the reference state_dict (``img_backbone``,
 ``img_neck``, ``img_view_transformer``, ``pre_process_net``,
 ``img_bev_encoder_backbone``, ``img_bev_encoder_neck``,
@@ -11,12 +19,14 @@ Submodules are named as the reference state_dict (``img_backbone``,
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..builder import DETECTORS, build_backbone, build_head, build_neck
+from ..necks.view_transformer import depth_bce_loss
 from ...ops.grid_sample import grid_sample
 
 
@@ -127,34 +137,47 @@ class BEVDepth4D(nn.Module):
         return grid_sample(bev_prev.to(f32), grid_n,
                            align_corners=True).to(bev_prev.dtype)
 
+    def _frame(self, f: int):
+        """Frame 1 feeds the BEV encoder detached: no graph for it."""
+        return torch.no_grad() if self.detach and f == 1 else \
+            contextlib.nullcontext()
+
     def extract_img_feat(self, inputs: ImgInputs):
         imgs = inputs.imgs
         n = imgs.shape[1] // 2
         bev_list, depth0 = [], None
         for f in range(2):
-            x = self.image_encoder(imgs[:, f * n:(f + 1) * n])
-            # both frames use the current frame's extrinsics (the
-            # pipeline ego-aligns the adjacent cams) and their own
-            # intrinsics and image-aug transforms
-            bev, dl = self.img_view_transformer(
-                (x, inputs.rots[:, 0], inputs.trans[:, 0],
-                 inputs.intrins[:, f], inputs.post_rots[:, f],
-                 inputs.post_trans[:, f]))
+            with self._frame(f):
+                x = self.image_encoder(imgs[:, f * n:(f + 1) * n])
+                # both frames use the current frame's extrinsics (the
+                # pipeline ego-aligns the adjacent cams) and their own
+                # intrinsics and image-aug transforms
+                bev, dl = self.img_view_transformer(
+                    (x, inputs.rots[:, 0], inputs.trans[:, 0],
+                     inputs.intrins[:, f], inputs.post_rots[:, f],
+                     inputs.post_trans[:, f]))
             if f == 0:
                 depth0 = dl
             bev_list.append(bev)
         if self.before and self.pre_process_net is not None:
-            bev_list = [self.pre_process_net(bv)[0] for bv in bev_list]
-        shifted = self.shift_feature(bev_list[1].permute(0, 2, 3, 1),
-                                     inputs.trans, inputs.rots)
+            bev_list = [self._pre_process(f, bv)
+                        for f, bv in enumerate(bev_list)]
+        with self._frame(1):
+            shifted = self.shift_feature(bev_list[1].permute(0, 2, 3, 1),
+                                         inputs.trans, inputs.rots)
         bev_list[1] = shifted.permute(0, 3, 1, 2)
         if self.pre_process_net is not None and not self.before:
-            bev_list = [self.pre_process_net(bv)[0] for bv in bev_list]
+            bev_list = [self._pre_process(f, bv)
+                        for f, bv in enumerate(bev_list)]
         if self.detach:
             bev_list[1] = bev_list[1].detach()
         bev = torch.cat(bev_list, dim=1)
         neck, feats = self.bev_encoder(bev)
         return StudentFeatureBundle(neck, feats, bev), depth0
+
+    def _pre_process(self, f: int, bev):
+        with self._frame(f):
+            return self.pre_process_net(bev)[0]
 
     def forward(self, inputs: ImgInputs):
         """-> (per-task dicts of channels-last head maps, the feature
@@ -164,3 +187,13 @@ class BEVDepth4D(nn.Module):
 
     def get_bboxes(self, preds):
         return self.pts_bbox_head.get_bboxes(preds)
+
+    def head_loss(self, preds, gt_boxes, gt_labels, gt_mask):
+        """The CenterHead loss on gravity-centred GT."""
+        return self.pts_bbox_head.loss(preds, gt_boxes, gt_labels, gt_mask)
+
+    def depth_loss(self, depth_logits, depth_gt):
+        """Depth supervision of frame 0's logits."""
+        vt = self.img_view_transformer
+        return depth_bce_loss(depth_logits, depth_gt,
+                              vt.grid_config["dbound"], vt.loss_depth_weight)

@@ -4,9 +4,10 @@ Counterpart of ``distillbev_tpu/models/layers.py``.  Submodule names
 follow the reference mmcv/mmdet state_dict (``conv``/``bn``,
 ``conv1``/``bn1``, ``downsample.0``/``downsample.1``), so a reference
 checkpoint and ``utils/convert.py`` address the same tensors.  BatchNorm
-is the eval-mode form with running statistics (the BEVFormer recipe
-trains with ``norm_eval=True``); batch statistics come with the distill
-train step.  ``dropout`` draws its mask from an explicit generator.
+normalises with batch statistics in training mode (``.train()``) and with
+its running statistics in eval mode (``.eval()``), as the JAX
+``BatchNorm`` with ``use_running_average`` (unmasked, no axis sync).
+``dropout`` draws its mask from an explicit generator.
 """
 from __future__ import annotations
 
@@ -24,29 +25,58 @@ _BN_TYPES = ("BN", "BN1d", "BN2d", "SyncBN", "naiveSyncBN1d",
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 (``[N, C]`` or ``[N, C, H, W]``)."""
+    """BatchNorm over dim 1 (``[N, C]`` or ``[N, C, H, W]``), the JAX
+    ``layers.py:BatchNorm`` without a mask or axis sync.
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    Training mode: statistics from sums of moments in fp32 (float64 for a
+    float64 input), ``mean = E[x]``, ``var = max(E[x^2] - mean^2, 0)`` (biased), and the running
+    statistics take ``(1 - momentum) * running + momentum * batch`` once
+    per call.  ``F.batch_norm(training=True)`` keeps the unbiased variance
+    in its running update, so it is not used here.  Eval mode: the running
+    statistics.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = float(x.numel() // x.shape[1])
+        mean = xf.sum(dims) / count
+        var = torch.clamp((xf * xf).sum(dims) / count - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean +
+                                    m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        y = (xf - mean.reshape(shape)) * torch.rsqrt(
+            var.reshape(shape) + self.eps)
+        y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y.to(x.dtype)
 
 
 def make_norm(norm_cfg: Optional[dict], num_features: int) -> BatchNorm:
-    """BatchNorm from an mmcv-style norm_cfg (the BN family only);
-    ``requires_grad=False`` freezes its affine parameters."""
+    """BatchNorm from an mmcv-style norm_cfg (the BN family only, with its
+    ``eps`` and ``momentum``); ``requires_grad=False`` freezes its affine
+    parameters."""
     cfg = dict(norm_cfg or dict(type="BN"))
     if cfg.get("type", "BN") not in _BN_TYPES:
         raise KeyError(f"norm type {cfg['type']} is not in this slice")
-    bn = BatchNorm(num_features, eps=cfg.get("eps", 1e-5))
+    bn = BatchNorm(num_features, eps=cfg.get("eps", 1e-5),
+                   momentum=cfg.get("momentum", 0.1))
     bn.requires_grad_(cfg.get("requires_grad", True))
     return bn
 

@@ -1,8 +1,11 @@
-"""Losses of the DETR-style heads.
+"""Registry-built losses.
 
-Counterpart of ``distillbev_tpu/models/losses.py`` (``FocalLoss`` :121,
-``L1Loss`` :59): sigmoid focal loss over one-hot targets and a weighted
-L1, both with the mmdet ``reduction``/``avg_factor`` rules.
+Counterpart of ``distillbev_tpu/models/losses.py``: ``clip_sigmoid``
+(:19), ``GaussianFocalLoss`` (:25, CenterHead's heatmaps), the
+elementwise-weighted ``L1Loss`` (:59), ``SmoothL1Loss`` (:78) and
+``MSELoss`` (:102), and the sigmoid ``FocalLoss`` (:121) of the
+DETR-style heads, all with the mmdet ``reduction``/``avg_factor``
+rules (``reduction="none"`` returns the elementwise loss).
 """
 from __future__ import annotations
 
@@ -21,6 +24,39 @@ def _reduce(loss: torch.Tensor, reduction: str, avg_factor):
     return loss
 
 
+def clip_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Sigmoid clamped to ``[eps, 1 - eps]``."""
+    return torch.clamp(torch.sigmoid(x), eps, 1 - eps)
+
+
+@LOSSES.register_module()
+class GaussianFocalLoss:
+    """Focal loss on gaussian heatmaps: ``-(1-p)^alpha log(p)`` where the
+    target is 1, ``-(1-t)^gamma p^alpha log(1-p)`` elsewhere; ``pred``
+    holds probabilities (``clip_sigmoid`` of the logits)."""
+
+    def __init__(self, alpha: float = 2.0, gamma: float = 4.0,
+                 reduction: str = "mean", loss_weight: float = 1.0):
+        self.alpha = alpha
+        self.gamma = gamma
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, avg_factor=None):
+        eps = 1e-12
+        pos_w = (target == 1.0).to(pred.dtype)
+        neg_w = torch.pow(1 - target, self.gamma)
+        pos = -torch.log(pred + eps) * torch.pow(1 - pred, self.alpha) * pos_w
+        neg = -torch.log(1 - pred + eps) * torch.pow(pred, self.alpha) * neg_w
+        loss = pos + neg * (1 - pos_w)
+        if self.reduction == "mean" and avg_factor is not None:
+            loss = loss.sum() / torch.clamp(torch.as_tensor(
+                avg_factor, dtype=loss.dtype, device=loss.device), min=1.0)
+        else:
+            loss = _reduce(loss, self.reduction, None)
+        return self.loss_weight * loss
+
+
 @LOSSES.register_module()
 class L1Loss:
 
@@ -30,6 +66,38 @@ class L1Loss:
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
         loss = (pred - target).abs()
+        if weight is not None:
+            loss = loss * weight
+        return self.loss_weight * _reduce(loss, self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class SmoothL1Loss:
+
+    def __init__(self, beta: float = 1.0, reduction: str = "mean",
+                 loss_weight: float = 1.0):
+        self.beta = beta
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        diff = (pred - target).abs()
+        loss = torch.where(diff < self.beta, 0.5 * diff * diff / self.beta,
+                           diff - 0.5 * self.beta)
+        if weight is not None:
+            loss = loss * weight
+        return self.loss_weight * _reduce(loss, self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class MSELoss:
+
+    def __init__(self, reduction: str = "mean", loss_weight: float = 1.0):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        loss = (pred - target) ** 2
         if weight is not None:
             loss = loss * weight
         return self.loss_weight * _reduce(loss, self.reduction, avg_factor)

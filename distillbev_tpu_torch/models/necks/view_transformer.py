@@ -2,13 +2,15 @@
 
 Counterpart of ``distillbev_tpu/models/necks/view_transformer.py``:
 ``LSSGeometry`` (depth-last frustum, fp32 geometry, truncating splat),
-``SELikeModule`` and ``ViewTransformerLSSBEVDepth``.  Convolutions run
-NCHW; the splat goes through ``ops.bev_pool.bev_pool_batched``, whose
-kernel is the hand-written ``scatter_add_rows_batched``.
+``SELikeModule``, ``ViewTransformerLSSBEVDepth`` and the depth
+supervision ``depth_bce_loss``.  Convolutions run NCHW; the splat goes
+through ``ops.bev_pool.bev_pool_batched``, whose kernels are the
+hand-written ``scatter_add_rows_batched`` (forward) and ``gather_rows``
+(backward).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,8 +66,8 @@ class LSSGeometry:
         ``[B, N, 3]`` -> ``[B, N, fH, fW, D, 3]``.
         """
         f32 = torch.float32
-        pts = frustum[None, None] - post_trans.to(f32)[:, :, None, None,
-                                                       None, :]
+        pts = frustum.to(f32)[None, None] - post_trans.to(f32)[
+            :, :, None, None, None, :]
         inv_post = torch.linalg.inv(post_rots.to(f32))
         pts = torch.einsum("bnij,bnhwdj->bnhwdi", inv_post, pts)
         pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], -1)
@@ -170,3 +172,24 @@ class ViewTransformerLSSBEVDepth(nn.Module):
         return (bev.permute(0, 3, 1, 2).contiguous(),
                 depth_logits.permute(0, 2, 3, 1).reshape(b, n, fh, fw,
                                                          self.D))
+
+
+def depth_bce_loss(depth_logits: torch.Tensor, depth_gt: torch.Tensor,
+                   dbound: Sequence[float],
+                   loss_weight: float = 100.0) -> torch.Tensor:
+    """BCE between each depth bin's sigmoid and the one-hot LiDAR depth,
+    pixels without a return masked out, reduced by a plain mean over every
+    element (the masked ones included), as the JAX ``depth_bce_loss``.
+
+    depth_logits ``[B, N, fH, fW, D]``; depth_gt ``[B, N, fH, fW]`` metric
+    depth (0 = no return).
+    """
+    d = depth_logits.shape[-1]
+    valid = depth_gt > 0
+    idx = torch.floor((depth_gt - dbound[0]) / dbound[2])
+    idx = idx.clamp(0, d - 1).long()
+    onehot = torch.nn.functional.one_hot(idx, d).to(torch.float32)
+    p = torch.sigmoid(depth_logits.to(torch.float32)).clamp(1e-6, 1 - 1e-6)
+    bce = -(onehot * torch.log(p) + (1 - onehot) * torch.log(1 - p))
+    bce = bce * valid[..., None]
+    return loss_weight * bce.mean()

@@ -2,10 +2,12 @@
 
 Counterpart of ``distillbev_tpu/ops/bev_pool.py``:
 
-* ``bev_pool_batched``: the per-sample scatter splat (forward), on the
-  row scatter kernel.  The JAX splat takes it only while the per-sample
-  canvas fits its 10 MiB VMEM budget; that gate is a TPU constraint, so
-  on the card the view transformer's splat always comes here.
+* ``bev_pool_batched``: the per-sample scatter splat, on the row scatter
+  kernel, as a ``torch.autograd.Function`` whose backward is the row
+  gather kernel (``ops/gather_rows.py``).  The JAX splat takes it only
+  while the per-sample canvas fits its 10 MiB VMEM budget; that gate is
+  a TPU constraint, so on the card the view transformer's splat always
+  comes here.
 * ``bev_pool``: the generic sort path, sort by cell + segmented scan +
   read of each cell's last row (``ops/segmented.py``, whose scan is the
   segmented-scan kernel), as a ``torch.autograd.Function`` whose
@@ -21,8 +23,44 @@ from typing import Tuple
 
 import torch
 
+from .gather_rows import gather_rows
 from .scatter_rows import scatter_add_rows_batched
 from .segmented import segment_reduce_sorted, sort_by_key
+
+
+class _BevPoolBatched(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, feats, cell, valid, h, w):
+        bsz, _, c = feats.shape
+        size = h * w
+        # as ops/bev_pool.py:105: clip to the grid, then send invalid rows
+        # past it so the kernel drops them
+        ids = torch.where(valid, cell.clamp(0, size - 1),
+                          torch.full_like(cell, size)).to(torch.int32)
+        out = scatter_add_rows_batched(ids.contiguous(),
+                                       feats.to(torch.float32).contiguous(),
+                                       size)
+        ctx.save_for_backward(ids)
+        ctx.dtype = feats.dtype
+        return out.reshape(bsz, h, w, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        bsz, p = ids.shape
+        size = g.shape[1] * g.shape[2]
+        # the JAX VJP (ops/bev_pool.py:116-123): cast to the feats dtype,
+        # gather g[b, clip(cell)], zero where ~valid.  Over the flattened
+        # [B * size, C] cotangent an invalid row (id == size) is sent past
+        # the table, where the gather writes a zero row.
+        g_flat = g.to(ctx.dtype).reshape(bsz * size, -1).contiguous()
+        base = torch.arange(bsz, dtype=torch.int32,
+                            device=ids.device)[:, None] * size
+        idx = torch.where(ids < size, ids + base,
+                          torch.full_like(ids, bsz * size))
+        dx = gather_rows(g_flat, idx.reshape(-1))
+        return dx.reshape(bsz, p, -1), None, None, None, None
 
 
 def bev_pool_batched(feats: torch.Tensor, cell: torch.Tensor,
@@ -35,18 +73,12 @@ def bev_pool_batched(feats: torch.Tensor, cell: torch.Tensor,
         valid: ``[B, P]`` bool.
         h, w: per-sample grid.
 
-    Returns ``[B, h, w, C]`` float32, summed in ascending point order.
+    Returns ``[B, h, w, C]`` float32, summed in ascending point order;
+    differentiable in ``feats``: the backward is the row gather
+    ``dfeats[b, p] = g[b, cell[b, p]]`` (zero where invalid) of
+    ``ops/gather_rows.py``.
     """
-    bsz, _, c = feats.shape
-    size = h * w
-    # as ops/bev_pool.py:105: clip to the grid, then send invalid rows
-    # past it so the kernel drops them
-    ids = torch.where(valid, cell.clamp(0, size - 1),
-                      torch.full_like(cell, size)).to(torch.int32)
-    out = scatter_add_rows_batched(ids.contiguous(),
-                                   feats.to(torch.float32).contiguous(),
-                                   size)
-    return out.reshape(bsz, h, w, c)
+    return _BevPoolBatched.apply(feats, cell, valid, h, w)
 
 
 def _flat_cell_index(coords: torch.Tensor, valid: torch.Tensor, b: int,

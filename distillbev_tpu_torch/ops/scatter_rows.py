@@ -4,6 +4,11 @@
   Replaces the TPU kernel ``distillbev_tpu/ops/pallas_scatter.py``
   ``scatter_add_rows_batched`` (``_kernel_batched``), the LSS splat
   behind ``bev_pool_batched``; kernel ``csrc/scatter_rows.cu``.
+* ``scatter_add_rows``: ``out[ids[r]] += upd[r]`` of ``upd``'s dtype,
+  ascending r; a bf16 ``upd`` accumulates in bf16, rounded after every
+  add.  Replaces ``scatter_add_rows`` (``_kernel``) of the same file and
+  ``tools/analysis_tools/bench_pallas_gather.py:pallas_rmw``
+  (``_rmw_kernel``): the batched kernel at B = 1, in fp32 or bf16.
 * ``scatter_add_rows_expand``: ``out[grp, ids[grp, s, q]] +=
   concat_k(w[grp, q, 4s + k] * g[grp, q])``, the dvalue scatter of the
   deformable-attention backward with the rank-1 update rows expanded
@@ -17,16 +22,18 @@ two.
 
 Design (see the source notes in ``csrc/``): the TPU kernels keep the
 whole accumulator (4.2 MB for the splat, up to 20.7 MB for one
-attention group) in VMEM, which no Hopper block can hold.  Here the
-wrapper prepares the row order -- a stable ``torch.sort`` of the row
-keys and ``torch.searchsorted`` for the start of every output row's
-segment -- and the kernel sums each output row with one warp, in
-ascending original row order, in fp32, writing each row once.  That is
+attention group, 12.1 MB at the gather tool's shape) in VMEM, which no
+Hopper block can hold.  Here the wrapper prepares the row order -- a
+stable ``torch.sort`` of the row keys and ``torch.searchsorted`` for the
+start of every output row's segment -- and the kernel sums each output
+row with one warp, in ascending original row order, in fp32 (bf16 for a
+bf16 ``upd`` of ``scatter_add_rows``), writing each row once.  That is
 the TPU kernels' order of adds, so the result is deterministic.
 
 Bound: memory.  At the flagship splat (R = 249,216, W = 64, size =
 16,384) the function must move 63.8 MB of updates, 1 MB of ids and
-4.2 MB of output, about 21 us at the H100's 3.35 TB/s.
+4.2 MB of output, about 21 us at the H100's 3.35 TB/s; at the tool's
+shape (R = 4,194,304, W = 128, size = 23,634) 2,176 MB, about 0.65 ms.
 """
 from __future__ import annotations
 
@@ -50,11 +57,12 @@ def scatter_add_rows_batched_plain(ids: torch.Tensor, upd: torch.Tensor,
     return out[:, :size]
 
 
-def _check(ids: torch.Tensor, upd: torch.Tensor, size: int):
+def _check(ids: torch.Tensor, upd: torch.Tensor, size: int,
+           dtypes=(torch.float32,)):
     if ids.dtype != torch.int32:
         raise TypeError(f"ids must be int32, got {ids.dtype}")
-    if upd.dtype != torch.float32:
-        raise TypeError(f"upd must be float32, got {upd.dtype}")
+    if upd.dtype not in dtypes:
+        raise TypeError(f"upd must be one of {dtypes}, got {upd.dtype}")
     if ids.dim() != 2 or upd.dim() != 3 or tuple(ids.shape) != tuple(
             upd.shape[:2]):
         raise ValueError(f"expected ids [B, R] and upd [B, R, W], got "
@@ -82,13 +90,16 @@ def segment_order(ids: torch.Tensor, size: int):
 
 def segment_sum(upd: torch.Tensor, order: torch.Tensor,
                 seg_start: torch.Tensor, size: int) -> torch.Tensor:
-    """Launch the segment-sum kernel of ``csrc/scatter_rows.cu``."""
+    """Launch the segment-sum kernel of ``csrc/scatter_rows.cu`` on
+    ``upd [B, R, W]`` (fp32, or bf16 summed in bf16)."""
     b, r, w = upd.shape
-    fn = cuda_build.load("scatter_rows").scatter_rows_segment_sum
+    lib = cuda_build.load("scatter_rows")
+    fn = lib.scatter_rows_segment_sum_bf16 if upd.dtype == torch.bfloat16 \
+        else lib.scatter_rows_segment_sum
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty(b, size, w, dtype=torch.float32, device=upd.device)
+    out = torch.empty(b, size, w, dtype=upd.dtype, device=upd.device)
     with torch.cuda.device(upd.device):
         err = fn(upd.data_ptr(), order.data_ptr(), seg_start.data_ptr(),
                  out.data_ptr(), b, r, size, w,
@@ -124,6 +135,60 @@ def scatter_add_rows_batched(ids: torch.Tensor, upd: torch.Tensor,
 
 
 scatter_add_rows_batched.launches = 0
+
+
+def scatter_add_rows_plain(ids: torch.Tensor, upd: torch.Tensor,
+                           size: int) -> torch.Tensor:
+    """Plain version: fp32 rows go through ``index_add_`` (ids outside
+    ``[0, size)`` into one trash row that is sliced off); the kept bf16
+    rows are added rank by rank (the k-th row of every output row's
+    segment, in ascending row order, k = 0, 1, ...), each add rounded to
+    bf16, as the kernel does."""
+    keep = (ids >= 0) & (ids < size)
+    out = upd.new_zeros(size + 1, upd.shape[1])
+    if upd.dtype != torch.bfloat16:
+        idx = torch.where(keep, ids, torch.full_like(ids, size)).long()
+        return out.index_add_(0, idx, upd)[:size]
+    idx, upd = ids[keep].long(), upd[keep]
+    sorted_ids, order = torch.sort(idx, stable=True)
+    rank = torch.arange(idx.shape[0], device=idx.device) - \
+        torch.searchsorted(sorted_ids, sorted_ids)
+    for k in range(int(rank.max()) + 1 if idx.numel() else 0):
+        rows = order[rank == k]          # at most one row per output row
+        out[idx[rows]] = out[idx[rows]] + upd[rows]
+    return out[:size]
+
+
+def scatter_add_rows(ids: torch.Tensor, upd: torch.Tensor,
+                     size: int) -> torch.Tensor:
+    """``out[ids[r]] += upd[r]`` with out zero-initialised, sequential in r.
+
+    Args:
+        ids: ``[R]`` int32 row ids.  Ids outside ``[0, size)`` are
+            dropped: a superset of the JAX contract, whose pad ids equal
+            ``size`` and land in trash rows.
+        upd: ``[R, W]`` float32 or bfloat16 update rows.
+        size: accumulator rows.
+
+    Returns ``[size, W]`` of ``upd.dtype``: a bf16 ``upd`` accumulates in
+    bf16, rounded after every add, as the TPU kernel's bf16 accumulator.
+    ``scatter_add_rows.launches`` counts the CUDA kernel's launches.
+    """
+    if ids.dim() != 1 or upd.dim() != 2:
+        raise ValueError(f"expected ids [R] and upd [R, W], got "
+                         f"{tuple(ids.shape)} and {tuple(upd.shape)}")
+    _check(ids[None], upd[None], size,
+           dtypes=(torch.float32, torch.bfloat16))
+    if upd.device.type == "cpu":
+        return scatter_add_rows_plain(ids, upd, size)
+    if upd.device.type != "cuda":
+        raise ValueError(f"no kernel for device {upd.device}")
+    out = segment_sum(upd[None], *segment_order(ids[None], size), size)[0]
+    scatter_add_rows.launches += 1
+    return out
+
+
+scatter_add_rows.launches = 0
 
 
 def scatter_add_rows_expand_plain(ids_sq: torch.Tensor, w: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Weight bridge: the JAX ``BEVDepth4D``, ``BEVFormer`` and LiDAR-teacher
-(``CenterPoint``, ``DynamicCenterPoint``) variables -> this port's
-``state_dict``.
+"""Weight bridge: the JAX ``BEVDepth4D`` (and ``BEVDepth4DDistill``),
+``BEVFormer`` and LiDAR-teacher (``CenterPoint``, ``DynamicCenterPoint``)
+variables -> this port's ``state_dict``.
 
 The port names its submodules as the reference mmdet3d state_dict, so
 the correspondence is the one ``tools/model_converters/
@@ -286,6 +286,38 @@ def jax_params_to_torch(flat: Mapping[str, np.ndarray],
     ``flat`` lacks.
     """
     return map_to_state_dict(flat, *bevdepth4d_name_map(depth))
+
+
+_CONV_ADAPTATIONS = ("1x1conv", "3x3conv", "upsample_1x1conv",
+                     "interpolate_1x1conv", "avgpool_1x1conv")
+
+
+def bevdepth4d_distill_params_to_torch(flat: Mapping[str, np.ndarray],
+                                       cfg: dict
+                                       ) -> "OrderedDict[str, torch.Tensor]":
+    """Flattened JAX ``BEVDepth4DDistill`` variables of the model ``cfg``
+    -> the port's state_dict: the student (``jax_params_to_torch``, BN
+    running statistics included) and the distiller's convolutional
+    student adaptations and spatial adaptation convs; the teacher side
+    must be ``identity``.  (The teacher itself takes
+    ``centerpoint_params_to_torch``.)"""
+    p = dict(cfg["distill_params"])
+    n = len(p["student_channels"])
+    kinds = p["adaptation_type"]
+    kinds = [kinds] * n if isinstance(kinds, str) else list(kinds)
+    t_kinds = p["teacher_adaptation_type"]
+    t_kinds = [t_kinds] * n if isinstance(t_kinds, str) else list(t_kinds)
+    pm, sm = bevdepth4d_name_map(cfg["img_backbone"].get("depth", 50))
+    for i in range(n):
+        if kinds[i] not in _CONV_ADAPTATIONS or t_kinds[i] != "identity":
+            raise NotImplementedError(
+                f"adaptations {kinds[i]!r} / {t_kinds[i]!r} have no map")
+        _dense(pm, f"distiller.channel_wise_adaptations.{i}.conv",
+               ("distiller", f"student_adapt_{i}", "conv"))
+        if p.get("spatial_mask", True):
+            _dense(pm, f"distiller.spatial_wise_adaptations.{i}",
+                   ("distiller", f"spatial_adapt_{i}"))
+    return map_to_state_dict(flat, pm, sm)
 
 
 def map_to_state_dict(flat: Mapping[str, np.ndarray], pm: NameMap,

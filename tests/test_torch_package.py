@@ -5,9 +5,10 @@
   ``chip_smoke.py``) names ``jax``, ``flax`` or ``distillbev_tpu`` in an
   import.
 * Its entry points default to the card (``device="cuda"``).
-* The JAX ``BEVDepth4D``'s and ``BEVFormer``'s variables load strictly
-  into the port; ``bevformer_r50_cfg()`` builds in both packages (the
-  teachers' are held in ``test_torch_centerpoint.py``).
+* The JAX ``BEVDepth4D``'s, ``BEVDepth4DDistill``'s and ``BEVFormer``'s
+  variables load strictly into the port; ``bevformer_r50_cfg()`` and the
+  flagship distill student build in both packages (the teachers' are
+  held in ``test_torch_centerpoint.py``).
 """
 import inspect
 import os
@@ -32,7 +33,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("ops.segmented", "ops.segmented_scan", "ops.scatter",
-             "ops.voxelize", "models.detectors.centerpoint"):
+             "ops.voxelize", "models.detectors.centerpoint",
+             "ops.gather_rows", "ops.scatter_rows", "ops.bev_pool",
+             "models.distill.fgd", "models.distill.masks",
+             "models.distill.adaptations", "models.detectors.bevdet_distill",
+             "core.gaussian", "training.train_step", "tools.bench_gather"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 bad = [m for m in sys.modules
@@ -54,7 +59,7 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 30
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -67,10 +72,11 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_entry_points_default_to_the_card():
     from distillbev_tpu_torch.apis import flagship
     from distillbev_tpu_torch.apis.test import run_eval
-    for fn in (flagship.build_flagship_student,
+    from distillbev_tpu_torch.tools.bench_gather import main as bench
+    for fn in (flagship.build_flagship, flagship.build_flagship_student,
                flagship.make_example_batch, flagship.build_bevformer,
                flagship.make_bevformer_example_batch, flagship.build_teacher,
-               flagship.make_points_example_batch, run_eval):
+               flagship.make_points_example_batch, run_eval, bench):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -152,3 +158,40 @@ def test_bevformer_r50_variables_load_strictly():
     n_port = sum(p.numel() for p in model.parameters())
     assert n_port == n_jax and n_port > 40_000_000
     assert isinstance(sd["pts_bbox_head.bev_embedding.weight"], torch.Tensor)
+
+
+def test_flagship_distill_student_variables_load_strictly():
+    """The full-width BEVDepth4DDistill (R50 + the FGD adaptations) builds
+    in both packages and every JAX variable of it has its place in the
+    port (traced abstractly on small images and a small cloud)."""
+    from functools import partial
+    from distillbev_tpu.models import build_detector as jax_build_detector
+    from distillbev_tpu.models.detectors.bevdet import ImgInputs
+    from distillbev_tpu_torch.apis import flagship
+    from distillbev_tpu_torch.models import build_detector
+    from distillbev_tpu_torch.utils.convert import \
+        bevdepth4d_distill_params_to_torch
+    s_cfg = flagship.bevdepth4d_distill_cfg(50)
+    s_cfg["img_view_transformer"]["data_config"] = {"input_size": (64, 176)}
+    teacher = jax_build_detector(flagship.centerpoint_teacher_cfg())
+    pts = np.zeros((1, 512, 5), np.float32)
+    mask = np.ones((1, 512), bool)
+    t_vars = jax.eval_shape(teacher.init, jax.random.PRNGKey(1), pts, mask)
+    _, t_bundle = jax.eval_shape(teacher.apply, t_vars, pts, mask)
+    eye = np.tile(np.eye(3, dtype=np.float32), (1, 2, 6, 1, 1))
+    inputs = ImgInputs(np.zeros((1, 12, 64, 176, 3), np.float32), eye,
+                       np.zeros((1, 2, 6, 3), np.float32), eye, eye,
+                       np.zeros((1, 2, 6, 3), np.float32))
+    student = jax_build_detector(s_cfg)
+    shapes = jax.eval_shape(partial(student.init,
+                                    method="init_with_teacher"),
+                            jax.random.PRNGKey(0), inputs, t_bundle)
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    flat = {"/".join(k.key for k in path): np.zeros(leaf.shape, np.float32)
+            for path, leaf in leaves}
+    model = build_detector(s_cfg)
+    model.load_state_dict(bevdepth4d_distill_params_to_torch(flat, s_cfg),
+                          strict=True)
+    n_jax = sum(int(np.prod(leaf.shape)) for path, leaf in leaves
+                if path[0].key == "params")
+    assert sum(p.numel() for p in model.parameters()) == n_jax > 50_000_000
